@@ -14,7 +14,18 @@ Phases, each of which fails the run (non-zero exit, no result line) on error:
                weights -> int4 -> VLAPolicy -> DynamicBatcher ->
                ActionServer on 127.0.0.1, answering concurrent HTTP requests;
                the kernel launch count of that run; the same batch through
-               the plain int4 path; prefill/tail times and peak memory.
+               the plain int4 path; prefill/tail times and peak memory;
+  5. flash   — the attention kernels B1/B2 against their plain versions on
+               the card (the attack step's shape with a dummy batch's causal
+               + padding bias, B=1, a ragged S, an all-zero bias), with times,
+               bounds and the scaled_dot_product_attention yardstick;
+  6. attack  — the attack slice end to end: `cli.attack` (UADA, OpenVLA-7B
+               at full width and depth, bf16, random weights, dummy data)
+               in-process, its B1/B2 launch count, losses and patches; then
+               one outer step's launches, the inner-step time, the device
+               breakdown and peak memory; TMA (with the val and clean-filter
+               steps) and UPA steps; one inner step's loss and patch gradient
+               through the kernels against the plain attention path.
 Then one JSON line of per-kernel numbers, the card line, and the result line.
 
 Imports nothing of JAX or of the JAX package.
@@ -23,10 +34,15 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import base64
+import dataclasses
+import gc
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import traceback
@@ -34,9 +50,17 @@ import urllib.request
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from roboticattack_torch.attacks import engine
+from roboticattack_torch.cli import attack as attack_cli
+from roboticattack_torch.data import batch_iterator, dummy_frame_iterator
 from roboticattack_torch.eval.policy import load_policy
+from roboticattack_torch.models import get_config
+from roboticattack_torch.models.vlm import init_vla_params
+from roboticattack_torch.ops import flash_attention as fa
 from roboticattack_torch.ops import kernel_build
+from roboticattack_torch.ops.attention import causal_bias, padding_bias
 from roboticattack_torch.ops.q4_matmul import (
     _unpack_nibbles,
     q4_matmul,
@@ -44,6 +68,8 @@ from roboticattack_torch.ops.q4_matmul import (
     reset_launches,
 )
 from roboticattack_torch.serving.http import ActionServer
+from roboticattack_torch.utils.labels import build_tma_target_tokens
+from roboticattack_torch.utils.prompting import WordStubTokenizer
 
 MODEL = "openvla-7b"
 SEED = 0
@@ -55,6 +81,16 @@ KERNELS = {
     "dense": ("q4_matmul_dense", "roboticattack_tpu/ops/q4_matmul.py:96"),
 }
 SOURCE = "roboticattack_torch/csrc/q4_matmul.cu"
+FLASH_KERNELS = {
+    "fwd": ("flash_attention_fwd", "roboticattack_tpu/ops/flash_attention.py:49"),
+    "bwd": ("flash_attention_bwd", "roboticattack_tpu/ops/flash_attention.py:66"),
+}
+FLASH_SOURCE = "roboticattack_torch/csrc/flash_attention.cu"
+# the attack slice: bs 8, prompts padded to 32 (multimodal S = 256 + 32),
+# 2 inner steps, a 50x50 patch
+ATTACK_BS, PAD_TO, INNER, PATCH_HW = 8, 32, 2, (50, 50)
+CLI_ITERS, CLI_EVAL_EVERY = 3, 2
+DEVICE = "cuda"
 N_REQUESTS = 8
 MAX_BATCH = 8
 # dense bf16 tensor-core peak and memory bandwidth of the H100 SXM (data sheet)
@@ -224,23 +260,13 @@ def timed_decode(policy, frames, tasks, num_steps: int, reps: int = 3) -> float:
     return float(np.median(times[1:]))
 
 
-def device_breakdown(policy, frames, tasks, num_steps: int, wall_ms: float) -> None:
-    """torch.profiler over one decode of `num_steps` tokens (1 = the prefill
-    alone): device kernel time by name, and the device-busy share against
-    the unprofiled wall time `wall_ms` of the same call. Reports
-    "not measured" where the profiler gives no device time."""
+def device_profile(run, wall_ms: float, label: str, card: str, match=()) -> dict:
+    """torch.profiler over one call of `run` (after one unprofiled call):
+    device kernel time by name and the device-busy share against the
+    unprofiled wall time `wall_ms` of the same work. Returns the device ms of
+    the kernels whose names contain each string of `match` ("not measured"
+    when the profiler gives no device time)."""
     from torch.profiler import ProfilerActivity, profile
-
-    from roboticattack_torch.models.decode import greedy_decode_actions
-
-    ids, mask, px = policy.prepare(frames, tasks)
-
-    def run():
-        with torch.inference_mode():
-            greedy_decode_actions(policy.model.tree(), policy.cfg, ids, mask, px,
-                                  num_steps=num_steps, cooked_weights=True,
-                                  int4_kernel=policy.int4_kernel)
-        torch.cuda.synchronize()
 
     run()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -251,8 +277,8 @@ def device_breakdown(policy, frames, tasks, num_steps: int, wall_ms: float) -> N
             if e.device_type == torch.autograd.DeviceType.CUDA
             and not e.name.startswith("Command Buffer")]
     if not kern:
-        log("slice: device busy share: not measured (the profiler recorded no device time)")
-        return
+        log(f"{label}: device busy share: not measured (the profiler recorded no device time)")
+        return {m: "not measured" for m in match}
     spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
     busy_us, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     for a, b in spans[1:]:
@@ -266,12 +292,31 @@ def device_breakdown(policy, frames, tasks, num_steps: int, wall_ms: float) -> N
     for e in kern:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
-    q4_us = sum(t for name, (_, t) in by_name.items() if "q4_matmul" in name)
-    log(f"slice: bs={len(frames)} decode of {num_steps} token(s): device busy {busy_us / 1e3:.2f} ms of {wall_ms:.2f} ms "
-        f"wall (unprofiled) -> device busy share {busy_us / 1e3 / wall_ms:.3f}; "
-        f"q4_matmul kernels {q4_us / 1e3:.2f} ms")
+    found = {m: sum(t for name, (_, t) in by_name.items() if m in name) / 1e3 for m in match}
+    log(f"{label}: device busy {busy_us / 1e3:.2f} ms of {wall_ms:.2f} ms wall (unprofiled) -> "
+        f"device busy share {busy_us / 1e3 / wall_ms:.3f}; "
+        + "; ".join(f"{m} kernels {v:.2f} ms" for m, v in found.items()) + f" [{card}]")
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
-        log(f"slice:   device {t / 1e3:8.3f} ms  x{n:<6d} {name[:100]}")
+        log(f"{label}:   device {t / 1e3:8.3f} ms  x{n:<6d} {name[:100]}")
+    return found
+
+
+def device_breakdown(policy, frames, tasks, num_steps: int, wall_ms: float, card: str) -> None:
+    """The device breakdown of one decode of `num_steps` tokens (1 = the
+    prefill alone)."""
+    from roboticattack_torch.models.decode import greedy_decode_actions
+
+    ids, mask, px = policy.prepare(frames, tasks)
+
+    def run():
+        with torch.inference_mode():
+            greedy_decode_actions(policy.model.tree(), policy.cfg, ids, mask, px,
+                                  num_steps=num_steps, cooked_weights=True,
+                                  int4_kernel=policy.int4_kernel)
+        torch.cuda.synchronize()
+
+    device_profile(run, wall_ms, f"slice: bs={len(frames)} decode of {num_steps} token(s)", card,
+                   match=("q4_matmul",))
 
 
 def phase_slice(card: str) -> dict:
@@ -379,11 +424,289 @@ def phase_slice(card: str) -> dict:
         timings[bs] = (pre, full - pre, full)
         log(f"slice: bs={bs} prefill_ms={pre:.2f} decode_tail_ms={full - pre:.2f} "
             f"(6 steps) decode_total_ms={full:.2f} [{card}]")
-    device_breakdown(policy, frames, tasks, 1, timings[8][0])
-    device_breakdown(policy, frames, tasks, 7, timings[8][2])
+    device_breakdown(policy, frames, tasks, 1, timings[8][0], card)
+    device_breakdown(policy, frames, tasks, 7, timings[8][2], card)
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"slice: peak torch.cuda.max_memory_allocated while serving = {peak:.2f} GiB [{card}]")
     return {"launches": launches, "timings": timings, "peak_gib": peak}
+
+
+def dummy_batches(bs: int, seed: int = SEED):
+    """The attack's dummy batches (numpy), OpenVLA-7B frame size."""
+    size = get_config(MODEL).dino.image_size
+    return batch_iterator(dummy_frame_iterator(WordStubTokenizer(), image_size=size, seed=seed),
+                          bs, pad_to=PAD_TO)
+
+
+def slice_bias(batch, num_patches: int) -> torch.Tensor:
+    """The decoder's f32 [B, S, S] causal + padding bias of a dummy batch: the
+    patch tokens after BOS are always attended, padded text keys are not."""
+    mask = torch.as_tensor(np.asarray(batch.attention_mask), device="cuda")
+    ones = torch.ones((mask.shape[0], num_patches), dtype=mask.dtype, device="cuda")
+    mm = torch.cat([mask[:, :1], ones, mask[:, 1:]], dim=1)
+    s = mm.shape[1]
+    return (causal_bias(s, s, device="cuda") + padding_bias(mm))[:, 0].contiguous()
+
+
+def attention_bounds(b: int, h: int, s: int, d: int, bw: float) -> dict:
+    """Least times of B1 and B2 at [b, h, s, d]: each input read once, each
+    output written once, over the memory rate; the products' operations over
+    the bf16 tensor-core peak (the inputs are bf16)."""
+    qkv = b * h * s * d * 2
+    bias = b * s * s * 4
+    stats = 2 * b * h * s * 4  # the row max and sum of exp
+    out = {}
+    for kind, nbytes, flops in (("fwd", 4 * qkv + bias + stats, 4 * s * s * d * b * h),
+                                ("bwd", 7 * qkv + bias + stats, 10 * s * s * d * b * h)):
+        byte_ms, op_ms = nbytes / bw * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+        out[kind] = dict(bytes=nbytes, flops=flops, byte_ms=byte_ms, op_ms=op_ms,
+                         bound_ms=max(byte_ms, op_ms),
+                         bound_by="bytes" if byte_ms >= op_ms else "operations")
+    return out
+
+
+def check_close(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Both sides sum in f32 in different orders and round to bf16: within a
+    couple of bf16 ulps (2^-8 relative) of the largest value."""
+    err = (got.float() - want.float()).abs().max().item()
+    tol = 2.0 ** -7 * want.float().abs().max().item()
+    if not (err <= tol and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"{label}: max_abs_err {err} > tol {tol} (or not finite)")
+    return err
+
+
+def phase_flash(bw: float, card: str) -> dict:
+    """B1 and B2 against their plain versions on the card; times at the
+    attack step's shape."""
+    cfg = get_config(MODEL)
+    h, d = cfg.llm.num_heads, cfg.llm.head_dim
+    s = cfg.num_patches + PAD_TO
+    bias8 = slice_bias(next(dummy_batches(ATTACK_BS)), cfg.num_patches)
+    causal100 = causal_bias(100, 100, device="cuda")[:, 0].expand(2, 100, 100).contiguous()
+    cases = [  # label, q/k/v shape, bias
+        ("attack shape, dummy-batch bias", (ATTACK_BS, h, s, d), bias8),
+        ("B=1", (1, h, s, d), bias8[:1].contiguous()),
+        ("ragged S=100", (2, 8, 100, d), causal100),
+        ("all-zero bias", (2, 8, 128, d), torch.zeros((2, 128, 128), device="cuda")),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    timing = {}
+    for label, shape, bias in cases:
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(4))
+        o, m, l = fa.flash_attention_fwd(q, k, v, bias)
+        grads = fa.flash_attention_bwd(q, k, v, bias, do, m, l)
+        torch.cuda.synchronize()
+        e_fwd = check_close(f"B1 {label}", o, fa.flash_attention_fwd_plain(q, k, v, bias))
+        e_bwd = max(check_close(f"B2 {label} d{n}", g, w) for n, g, w in
+                    zip("qkv", grads, fa.flash_attention_bwd_plain(q, k, v, bias, do)))
+        errs["fwd"], errs["bwd"] = max(errs["fwd"], e_fwd), max(errs["bwd"], e_bwd)
+        log(f"flash: {label} {list(shape)}: B1 max_abs_err={e_fwd:.4g}, B2 max_abs_err={e_bwd:.4g} "
+            f"(tol 2^-7 x max|plain| each)")
+        if timing:
+            continue
+        # times at the attack step's shape
+        bounds = attention_bounds(*shape, bw)
+        mask = bias[:, None].to(torch.bfloat16)
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+        def lib_fwd_bwd(_):
+            out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+            torch.autograd.grad(out, (qg, kg, vg), do)
+
+        # device time, as the kernels': eager timing of the backward reads
+        # the host's autograd launch path whenever the host is slow
+        lib_fwd = device_ms(lambda _: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+        lib_both = device_ms(lib_fwd_bwd)
+        timing = {
+            "fwd": dict(ms=device_ms(lambda _: fa.flash_attention_fwd(q, k, v, bias)),
+                        plain_ms=device_ms(lambda _: fa.flash_attention_fwd_plain(q, k, v, bias),
+                                           calls=4, replays=3),
+                        library_ms=lib_fwd, **bounds["fwd"]),
+            "bwd": dict(ms=device_ms(lambda _: fa.flash_attention_bwd(q, k, v, bias, do, m, l)),
+                        plain_ms=device_ms(lambda _: fa.flash_attention_bwd_plain(q, k, v, bias, do),
+                                           calls=4, replays=3),
+                        library_ms=lib_both - lib_fwd, **bounds["bwd"]),
+        }
+        for kind, t in timing.items():
+            log(f"flash: {FLASH_KERNELS[kind][0]} {list(shape)}: kernel_ms={t['ms']:.5f} "
+                f"plain_ms={t['plain_ms']:.5f} library_ms={t['library_ms']:.5f} "
+                f"(scaled_dot_product_attention with a bf16 additive mask"
+                f"{'' if kind == 'fwd' else ', forward+backward minus forward'}; CUDA-graph replay) "
+                f"bound_ms={t['bound_ms']:.5f} ({t['bound_by']}: {t['bytes'] / 1e6:.2f} MB -> "
+                f"{t['byte_ms']:.5f} ms, {t['flops'] / 1e9:.2f} GFLOP -> {t['op_ms']:.5f} ms) "
+                f"achieved {t['flops'] / (t['ms'] * 1e-3) / 1e12:.2f} TFLOP/s [{card}]")
+        del qg, kg, vg
+    return {"timing": timing, "errs": errs}
+
+
+def attack_flops(cfg, bs: int, text_len: int) -> float:
+    """Matmul FLOPs of one inner step derived from the config: the forward,
+    plus the input gradient (1x a linear layer's forward, 2x an attention
+    product's), the recompute not counted."""
+
+    def vit(vc):
+        t = vc.num_patches + vc.num_prefix_tokens
+        d = vc.embed_dim
+        lin = vc.num_patches * 2 * vc.patch_size ** 2 * 3 * d
+        lin += vc.tap_layer * t * 2 * (3 * d * d + d * d + 2 * d * vc.mlp_hidden)
+        return lin, vc.tap_layer * 4 * t * t * d
+
+    llm = cfg.llm
+    d, hd = llm.hidden_size, llm.head_dim
+    s = cfg.num_patches + text_len
+    lin = s * llm.num_layers * 2 * (d * llm.num_heads * hd + 2 * d * llm.num_kv_heads * hd
+                                    + llm.num_heads * hd * d + 3 * d * llm.intermediate_size)
+    lin += text_len * 2 * d * llm.vocab_size
+    attn = llm.num_layers * 4 * s * s * hd * llm.num_heads
+    vdim = cfg.vision_dim
+    lin += cfg.num_patches * 2 * (vdim * 4 * vdim + 4 * vdim * d + d * d)
+    for vc in (cfg.dino, cfg.siglip):
+        v_lin, v_attn = vit(vc)
+        lin, attn = lin + v_lin, attn + v_attn
+    return bs * (2 * lin + 3 * attn)
+
+
+def phase_attack(card: str) -> dict:
+    """The attack slice (main path: the CLI), then direct steps."""
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_attack_")
+    argv = ["--attack", "uada", "--model", MODEL, "--dataset", "dummy", "--iter", str(CLI_ITERS),
+            "--innerLoop", str(INNER), "--bs", str(ATTACK_BS), "--pad_to", str(PAD_TO),
+            "--warmup", "0", "--eval_every", str(CLI_EVAL_EVERY), "--eval_batches", "1",
+            "--seed", str(SEED), "--device", DEVICE, "--output", out_dir]
+    layers = get_config(MODEL).llm.num_layers
+    evals = len(range(0, CLI_ITERS, CLI_EVAL_EVERY))
+    want = {"fwd": CLI_ITERS * INNER * 2 * layers + evals * layers, "bwd": CLI_ITERS * INNER * layers}
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()  # the main path's count starts here
+        t = time.perf_counter()
+        attack_cli.main(argv)
+        torch.cuda.synchronize()
+        launches = dict(fa.flash_attention.launches)  # read right after the main path
+        cli_s = time.perf_counter() - t
+        log(f"attack: `python -m roboticattack_torch.cli.attack {' '.join(argv[:-4])}` ran in "
+            f"{cli_s:.1f} s (weight init included); peak allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+        log(f"attack: B1/B2 launches in the CLI run {launches}; expected {want} "
+            f"({CLI_ITERS} steps x {INNER} inner x (2 x {layers} B1 with remat, {layers} B2) + "
+            f"{evals} val forwards x {layers} B1)")
+        if launches != want:
+            raise AssertionError(f"CLI launch count {launches} != {want}")
+        lines = [json.loads(ln) for ln in open(os.path.join(out_dir, "run-metrics.jsonl"))]
+        losses = [ln["TRAIN_loss"] for ln in lines if "TRAIN_loss" in ln]
+        vals = [ln for ln in lines if any(k.startswith("VAL_") for k in ln)]
+        if len(losses) != CLI_ITERS or not np.all(np.isfinite(losses)) or len(vals) != evals:
+            raise AssertionError(f"CLI losses {losses}, {len(vals)} val lines")
+        log(f"attack: TRAIN_loss per step {losses}; VAL lines {[{k: v for k, v in ln.items() if k.startswith('VAL')} for ln in vals]}")
+        init = torch.rand((*PATCH_HW, 3), generator=torch.Generator().manual_seed(SEED))
+        for tag in ("final", "last"):
+            chw = torch.load(os.path.join(out_dir, tag, "patch.pt"), weights_only=True)
+            if tuple(chw.shape) != (3, *PATCH_HW) or chw.min() < 0 or chw.max() > 1:
+                raise AssertionError(f"{tag}/patch.pt: shape {tuple(chw.shape)}, range "
+                                     f"[{chw.min().item()}, {chw.max().item()}]")
+            moved = (chw.permute(1, 2, 0) - init).abs().max().item()
+            if moved == 0.0:
+                raise AssertionError(f"{tag}/patch.pt did not move from the initial patch")
+            log(f"attack: {tag}/patch.pt [3, 50, 50] in [{chw.min().item():.4f}, {chw.max().item():.4f}], "
+                f"max |change| from the initial patch {moved:.4g}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = get_config(MODEL)
+    params = init_vla_params(torch.Generator(device=DEVICE).manual_seed(SEED), cfg)
+    batches = dummy_batches(ATTACK_BS)
+    batch = engine.batch_to_device(next(batches), DEVICE)
+    gen = torch.Generator().manual_seed(SEED)
+
+    def draws_for(spec, inner=None):
+        return engine.draw_step(gen, spec, batch.images.shape, PATCH_HW, batch.labels.shape, inner)
+
+    def fresh_state():
+        return engine.init_attack_state(torch.Generator().manual_seed(SEED), PATCH_HW, DEVICE)
+
+    spec = engine.AttackSpec(objective="uada", inner_loop=INNER)
+    step = engine.make_attack_step(spec, cfg, None, range(7))
+    state = fresh_state()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    state, metrics = step(params, state, batch, 2e-3, True, draws_for(spec))
+    torch.cuda.synchronize()
+    one = dict(fa.flash_attention.launches)
+    want_one = {"fwd": INNER * 2 * layers, "bwd": INNER * layers}
+    log(f"attack: one outer step (UADA, {INNER} inner) launched B1/B2 {one}; expected {want_one}")
+    if one != want_one:
+        raise AssertionError(f"outer-step launch count {one} != {want_one}")
+    times = []
+    for _ in range(4):
+        draws = draws_for(spec)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = step(params, state, batch, 2e-3, True, draws)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        if not all(bool(torch.isfinite(v).all()) for v in metrics.values()):
+            raise AssertionError(f"non-finite UADA metrics {metrics}")
+    inner_ms = float(np.median(times)) / INNER
+    flops = attack_flops(cfg, ATTACK_BS, PAD_TO)
+    log(f"attack: UADA outer step ({INNER} inner) host ms {[round(x, 2) for x in times]}; "
+        f"inner step {inner_ms:.2f} ms (median / {INNER}); matmul FLOPs per inner step "
+        f"(forward + input gradient, from the config) {flops / 1e12:.2f} TFLOP -> "
+        f"{flops / (inner_ms * 1e-3) / 1e12:.1f} TFLOP/s = {flops / (inner_ms * 1e-3) / PEAK_BF16_FLOPS:.3f} "
+        f"of the 989 TFLOP/s bf16 peak [{card}]")
+    last = {k: float(v[-1]) for k, v in metrics.items()}
+    log(f"attack: UADA metrics of the last inner step {last}")
+
+    def run_step():
+        step(params, state, batch, 2e-3, True, draws_for(spec))
+        torch.cuda.synchronize()
+
+    found = device_profile(run_step, inner_ms * INNER, f"attack: one UADA outer step ({INNER} inner)",
+                           card, match=("flash_fwd_kernel", "flash_bwd_", "nvjet", "gemm"))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"attack: peak torch.cuda.max_memory_allocated over the UADA steps = {peak:.2f} GiB [{card}]")
+
+    # TMA on the gripper dim, with the val and clean-filter steps
+    maskidx = [6]
+    target = build_tma_target_tokens(np.zeros(7), maskidx)
+    tspec = engine.AttackSpec(objective="tma", inner_loop=1)
+    tstate, tm = engine.make_attack_step(tspec, cfg, target, maskidx)(
+        params, fresh_state(), batch, 2e-3, True, draws_for(tspec))
+    val = engine.make_val_step(tspec, cfg, target, maskidx)(params, tstate.patch, batch, draws_for(tspec, 1))
+    clean = engine.make_clean_filter_step(cfg)(params, batch)
+    patched = val.pop("_patched_images")
+    finite = all(bool(torch.isfinite(v.float()).all()) for v in list(tm.values()) + list(val.values()))
+    if not finite or clean.shape != (ATTACK_BS,) or patched.shape != batch.images.shape:
+        raise AssertionError(f"TMA step / val / clean filter: finite {finite}, clean {tuple(clean.shape)}")
+    log(f"attack: TMA step (maskidx [6]) loss {tm['loss'].tolist()} l1 {tm['l1'].tolist()}; val loss "
+        f"{val['loss'].item():.5g} ex_l1 {val['ex_l1'].tolist()}; clean-filter {clean.tolist()}")
+    # UPA with the L1 gradient clip
+    uspec = engine.AttackSpec(objective="upa", inner_loop=1, grad_clip_l1=1e-3)
+    _, um = engine.make_attack_step(uspec, cfg, None, range(7))(
+        params, fresh_state(), batch, 2e-3, True, draws_for(uspec))
+    if not all(bool(torch.isfinite(v).all()) for v in um.values()):
+        raise AssertionError(f"non-finite UPA metrics {um}")
+    log(f"attack: UPA step (L1 clip 1e-3) loss {um['loss'].tolist()} angle {um['angle'].tolist()}")
+
+    # one inner step through the kernels against the plain attention path
+    labels = engine.prepare_labels(spec, batch.labels, None, range(7), None)
+    d = draws_for(spec, 1).inner[0]
+    xla_cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, attn_impl="xla"))
+    loss_f, _, grad_f = engine.patch_loss_and_grad(spec, cfg, params, state.patch, batch, labels, d)
+    loss_x, _, grad_x = engine.patch_loss_and_grad(spec, xla_cfg, params, state.patch, batch, labels, d)
+    rel = abs(loss_f.item() - loss_x.item()) / abs(loss_x.item())
+    cos = F.cosine_similarity(grad_f.flatten(), grad_x.flatten(), dim=0).item()
+    log(f"attack: kernel path vs plain attention (attn_impl='xla'): loss {loss_f.item():.6g} vs "
+        f"{loss_x.item():.6g} (rel diff {rel:.3g}, tol 1e-2); patch-gradient cosine {cos:.6f} (tol 0.99)")
+    if not (rel <= 1e-2 and cos >= 0.99):
+        raise AssertionError(f"kernel path disagrees with the plain path: rel {rel}, cosine {cos}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "inner_ms": inner_ms, "device": found, "peak_gib": peak,
+            "rel": rel, "cos": cos}
 
 
 def main() -> int:
@@ -409,8 +732,24 @@ def main() -> int:
 
     rows = phase_kernels(bw)
     res = phase_slice(card)
+    gc.collect()  # the int4 policy of the serving phase
+    torch.cuda.empty_cache()
+    log(f"freed the serving phase: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
+    flash = phase_flash(bw, card)
+    att = phase_attack(card)
 
     kernels = []
+    for kind, (kname, replaces) in FLASH_KERNELS.items():
+        t = flash["timing"][kind]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": FLASH_SOURCE, "replaces": replaces,
+            "launches": att["launches"][kind], "max_abs_err": flash["errs"][kind],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "at": f"[{ATTACK_BS}, 32, {256 + PAD_TO}, 128] bf16 with a dummy batch's causal + "
+                  "padding bias, per launch; launches from the CLI run",
+            "on_main_path": True,
+        })
     for mode, (kname, replaces) in KERNELS.items():
         at8 = [r for r in rows if r["mode"] == mode and r["m"] == 8]
 

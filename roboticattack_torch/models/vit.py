@@ -23,6 +23,7 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import mha
 from .config import ViTConfig
@@ -78,10 +79,11 @@ def _block(cfg: ViTConfig, x: torch.Tensor, p: Dict[str, torch.Tensor], li: int)
     return x + y
 
 
-def vit_features(params: Dict, cfg: ViTConfig, images: torch.Tensor) -> torch.Tensor:
+def vit_features(params: Dict, cfg: ViTConfig, images: torch.Tensor, remat: bool = False) -> torch.Tensor:
     """images: [B, H, W, 3] (already normalized) -> [B, num_patches, D] patch
     features from the second-to-last block (no final norm, prefix stripped).
-    params['blocks'] stacks only the `tap_layer` blocks that run."""
+    params['blocks'] stacks only the `tap_layer` blocks that run. `remat`
+    recomputes each block in the backward (torch.utils.checkpoint)."""
     dtype = params["patch_embed"]["kernel"].dtype
     x = patchify(images.to(dtype), cfg.patch_size)
     x = x @ params["patch_embed"]["kernel"]
@@ -103,7 +105,10 @@ def vit_features(params: Dict, cfg: ViTConfig, images: torch.Tensor) -> torch.Te
         x = layer_norm(x, params["norm_pre"]["scale"], params["norm_pre"]["bias"], cfg.ln_eps)
 
     for li in range(params["blocks"]["qkv_w"].shape[0]):
-        x = _block(cfg, x, params["blocks"], li)
+        if remat:
+            x = checkpoint(_block, cfg, x, params["blocks"], li, use_reentrant=False)
+        else:
+            x = _block(cfg, x, params["blocks"], li)
     return x[:, cfg.num_prefix_tokens :, :]
 
 

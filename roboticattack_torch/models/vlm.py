@@ -1,5 +1,6 @@
 """Prismatic/OpenVLA multimodal pieces in PyTorch: fused dual-ViT features,
-the MLP projector, and the `VLA` module that holds every param.
+the MLP projector, the attack's multimodal forward (`vla_forward`), and the
+`VLA` module that holds every param.
 
   - fused backbone: per-backbone features concatenated on the embedding dim;
     the backbone split is the leading stack axis of the [B, 2, H, W, 3]
@@ -10,14 +11,15 @@ the MLP projector, and the `VLA` module that holds every param.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .. import not_ported
 from .config import PhiConfig, VLAConfig, torch_dtype
-from .llama import Llama, init_llama_params
+from .llama import Llama, cross_entropy_loss, embed_tokens, init_llama_params, llama_apply
 from .param_tree import ParamTree
 from .vit import ViT, _normal, init_vit_params, vit_features
 
@@ -36,14 +38,75 @@ def projector_apply(params: Dict, features: torch.Tensor) -> torch.Tensor:
     return _gelu(x) @ params["fc3_w"] + params["fc3_b"]
 
 
-def vision_features(params: Dict, cfg: VLAConfig, pixel_values: torch.Tensor) -> torch.Tensor:
+def vision_features(params: Dict, cfg: VLAConfig, pixel_values: torch.Tensor,
+                    remat: bool = False) -> torch.Tensor:
     """pixel_values: [B, 2, H, W, 3] (DINO-normed, SigLIP-normed) ->
     [B, num_patches, dino_dim + siglip_dim]."""
-    dino = vit_features(params["dino"], cfg.dino, pixel_values[:, 0])
+    dino = vit_features(params["dino"], cfg.dino, pixel_values[:, 0], remat=remat)
     if cfg.siglip is None:
         return dino
-    sig = vit_features(params["siglip"], cfg.siglip, pixel_values[:, 1])
+    sig = vit_features(params["siglip"], cfg.siglip, pixel_values[:, 1], remat=remat)
     return torch.cat([dino, sig], dim=-1)
+
+
+class VLAOutput(NamedTuple):
+    loss: Optional[torch.Tensor]
+    # TEXT-REGION logits [B, S, V] f32: position j holds the logits of
+    # extended position num_patches + j (predicting text token j + 1); the
+    # image-patch positions' logits are never read, so never computed
+    logits: torch.Tensor
+
+
+def vla_forward(
+    params: Dict,
+    cfg: VLAConfig,
+    input_ids: torch.Tensor,
+    attention_mask: torch.Tensor,
+    pixel_values: Optional[torch.Tensor],
+    labels: Optional[torch.Tensor] = None,
+) -> VLAOutput:
+    """The multimodal training/attack forward: the projected patch tokens
+    are inserted after BOS (and always attended), the decoder computes the
+    text region's logits, and `labels` give the shifted CE.
+    `pixel_values=None` runs the decoder over input_ids alone (full-row
+    logits). With `cfg.remat` the vision encode is one outer checkpoint
+    (only the pixels and the projected patches stay saved) over per-block
+    checkpoints, and every decoder block is checkpointed."""
+    if isinstance(cfg.llm, PhiConfig):
+        raise not_ported("the Phi-2 decoder", "slice 4: model zoo")
+    llm = params["llm"]
+    if pixel_values is None:
+        logits = llama_apply(llm, cfg.llm, embed_tokens(llm, input_ids),
+                             attention_mask=attention_mask, remat=cfg.remat)
+        loss = cross_entropy_loss(logits, labels) if labels is not None else None
+        return VLAOutput(loss=loss, logits=logits)
+
+    def encode(pixels):
+        return projector_apply(params["projector"],
+                               vision_features(params["vision"], cfg, pixels, remat=cfg.remat))
+
+    if cfg.remat:
+        projected = checkpoint(encode, pixel_values, use_reentrant=False)
+    else:
+        projected = encode(pixel_values)
+
+    emb = embed_tokens(llm, input_ids)
+    mm_emb = torch.cat([emb[:, :1], projected.to(emb.dtype), emb[:, 1:]], dim=1)
+    ones = torch.ones(projected.shape[:2], dtype=attention_mask.dtype, device=attention_mask.device)
+    mm_mask = torch.cat([attention_mask[:, :1], ones, attention_mask[:, 1:]], dim=1)
+    logits = llama_apply(llm, cfg.llm, mm_emb, attention_mask=mm_mask, remat=cfg.remat,
+                         logits_tail=input_ids.shape[1])
+    # every valid label lives in the text region and labels[0] (BOS) is
+    # IGNORE, so the shifted CE over the text logits is the extended row's
+    loss = cross_entropy_loss(logits, labels) if labels is not None else None
+    return VLAOutput(loss=loss, logits=logits)
+
+
+def action_logit_slice(logits: torch.Tensor, cfg: VLAConfig, text_len: int) -> torch.Tensor:
+    """Positions predicting text tokens 1..S-1, aligned with labels[:, 1:]:
+    with text-region logits, `[:, :-1]`. Returns [B, S-1, V]."""
+    del cfg, text_len
+    return logits[:, :-1, :]
 
 
 class Projector(ParamTree):

@@ -24,7 +24,7 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 # kernel library name -> its source in csrc/
-SOURCES = {"q4_matmul": "q4_matmul.cu"}
+SOURCES = {"q4_matmul": "q4_matmul.cu", "flash_attention": "flash_attention.cu"}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

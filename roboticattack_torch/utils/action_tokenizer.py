@@ -1,7 +1,8 @@
-"""Uniform-bin action token decoding (numpy and torch).
+"""Uniform-bin action token codec (numpy and torch).
 
 256 uniform bins over [-1, 1] map onto the last 256 tokens of the 32000-entry
-Llama vocab; a token decodes through the 255 bin centers as
+Llama vocab: an action encodes as ``vocab - digitize(action, bins)``, and a
+token decodes through the 255 bin centers as
 ``centers[clip(vocab - id - 1, 0, 254)]``.
 """
 
@@ -23,6 +24,12 @@ def decode_tokens(token_ids: torch.Tensor, vocab_size: int = VOCAB_SIZE) -> torc
     discretized = torch.clamp(vocab_size - token_ids - 1, 0, BIN_CENTERS.shape[0] - 1)
     centers = torch.as_tensor(BIN_CENTERS, dtype=torch.float32, device=token_ids.device)
     return centers[discretized.long()]
+
+
+def encode_actions_np(actions: np.ndarray, vocab_size: int = VOCAB_SIZE) -> np.ndarray:
+    """Continuous actions -> token ids: ``vocab_size - digitize(clip(a), bins)``."""
+    actions = np.clip(actions, -1.0, 1.0)
+    return (vocab_size - np.digitize(actions, BINS)).astype(np.int64)
 
 
 def decode_tokens_np(token_ids: np.ndarray, vocab_size: int = VOCAB_SIZE) -> np.ndarray:
