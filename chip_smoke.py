@@ -17,8 +17,9 @@ Phases, each of which fails the run (non-zero exit, no result line) on error:
                the plain int4 path; prefill/tail times and peak memory;
   5. flash   — the attention kernels B1/B2 against their plain versions on
                the card (the attack step's shape with a dummy batch's causal
-               + padding bias, B=1, a ragged S, an all-zero bias), with times,
-               bounds and the scaled_dot_product_attention yardstick;
+               + padding bias, B=1, a ragged S, an all-zero bias, S=17 inside
+               one tile, S=2048), with times, bounds and the
+               scaled_dot_product_attention yardstick;
   6. attack  — the attack slice end to end: `cli.attack` (UADA, OpenVLA-7B
                at full width and depth, bf16, random weights, dummy data)
                in-process, its B1/B2 launch count, losses and patches; then
@@ -39,6 +40,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -108,6 +110,21 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_report(log: str) -> str:
+    """nvcc's -Xptxas -v output, one entry per kernel: its registers, stack
+    frame and spills."""
+    out, name, frame = [], "?", ""
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            m = re.search(r"\d+((?:flash|q4)\w*?kernel)(I\w*?EE)?", ln)
+            name = m.group(1) + (m.group(2) or "") if m else ln.split()[-1]
+        elif "stack frame" in ln:
+            frame = ln.strip()
+        elif "Used" in ln and "registers" in ln:
+            out.append(f"{name}: {ln.split(':', 1)[1].strip()}; {frame}")
+    return " | ".join(out)
 
 
 def hbm_rate(name: str) -> float:
@@ -482,12 +499,16 @@ def phase_flash(bw: float, card: str) -> dict:
     h, d = cfg.llm.num_heads, cfg.llm.head_dim
     s = cfg.num_patches + PAD_TO
     bias8 = slice_bias(next(dummy_batches(ATTACK_BS)), cfg.num_patches)
-    causal100 = causal_bias(100, 100, device="cuda")[:, 0].expand(2, 100, 100).contiguous()
+    def causal(b, n):
+        return causal_bias(n, n, device="cuda")[:, 0].expand(b, n, n).contiguous()
+
     cases = [  # label, q/k/v shape, bias
         ("attack shape, dummy-batch bias", (ATTACK_BS, h, s, d), bias8),
         ("B=1", (1, h, s, d), bias8[:1].contiguous()),
-        ("ragged S=100", (2, 8, 100, d), causal100),
+        ("ragged S=100", (2, 8, 100, d), causal(2, 100)),
         ("all-zero bias", (2, 8, 128, d), torch.zeros((2, 128, 128), device="cuda")),
+        ("S=17, inside one tile", (2, 8, 17, d), causal(2, 17)),
+        ("S=2048 = MAX_SEQ", (1, 4, fa.MAX_SEQ, d), causal(1, fa.MAX_SEQ)),
     ]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errs = {"fwd": 0.0, "bwd": 0.0}
@@ -726,8 +747,7 @@ def main() -> int:
     t = time.perf_counter()
     report = kernel_build.build_all()
     for lib, r in report.items():
-        regs = [ln.strip() for ln in r["log"].splitlines() if "registers" in ln]
-        log(f"build: {lib} in {r['seconds']:.1f} s; " + " | ".join(regs))
+        log(f"build: {lib} in {r['seconds']:.1f} s; {ptxas_report(r['log'])}")
     log(f"build: all kernels ready in {time.perf_counter() - t:.1f} s")
 
     rows = phase_kernels(bw)

@@ -1,5 +1,6 @@
 // Attention forward (B1) and backward (B2) of the Llama decoder, hand-written
-// for Hopper.
+// for Hopper: bf16 tensor cores (mma.sync m16n8k16) fed by double-buffered
+// cp.async copies.
 //
 // Replace the Pallas TPU kernels of roboticattack_tpu/ops/flash_attention.py:
 //   flash_attention_fwd_bf16 <- _fwd_kernel (via _fwd_pallas)
@@ -10,46 +11,93 @@
 //   P  = exp(S - rowmax S) / rowsum(...)  (f32)
 //   O  = bf16(P) V                        (P rounded to bf16, f32 sums, O bf16)
 //
-//   dP = dO V^T,  dS = P * (dP - rowsum(dP * P))   (f32 operands throughout)
+//   dP = dO V^T,  dS = P * (dP - rowsum(dP * P))   (f32 P, dP and dS)
 //   dQ = dS K * scale,  dK = dS^T Q * scale,  dV = P^T dO   (outputs bf16)
 //
 // q, k, v, o, dO, dq, dk, dv: [BH, S, 128] bf16, contiguous.
 // bias: [B, S, S] f32, shared by the H heads of a batch row (bh / H).
 // stat_m, stat_l: [BH, S] f32, each row's max and sum of exp, written by
-// the forward and read by the backward, which then recomputes exactly the
-// forward's P. dvec: [BH, S] f32 scratch of the backward, rowsum(dP * P).
+// the forward and read by the backward, which then recomputes the forward's
+// P from them. dvec: [BH, S] f32 scratch of the backward, rowsum(dP * P).
 //
-// The Pallas kernel keeps a whole head's S x S f32 scores in VMEM (330 KB at
-// S = 288); Hopper gives a block at most 227 KB of shared memory. Here a
-// block owns one 64-row tile and walks the other side's 64-row tiles,
-// staged in shared memory as f32:
-//   forward, one block per (bh, query tile), two passes over the key tiles:
+// What bounds it on the card. At the attack step's shape ([8*32, 288, 128],
+// chip_smoke.attention_bounds) B1 must move ~79 MB (q, k, v, o, bias, stats:
+// ~23.5 us at 3.35 TB/s) for ~11 GFLOP of products (~11 us at 989 TFLOP/s of
+// bf16), B2 ~135 MB (~40 us) for ~27 GFLOP (~27 us): the bytes bound both.
+// The kernels recompute scores (B1 twice, B2's rows kernel twice and its
+// columns kernel once more) and round S up to whole tiles, so they run
+// ~20 (B1) and ~80 (B2) GFLOP of tensor work; the re-read tiles come from L2.
+//
+// Products and their operands:
+//   * Q K^T, dO V^T (rows kernel), K Q^T, V dO^T (columns kernel) and
+//     bf16(P) V have two bf16 operands: mma.sync with f32 accumulation forms
+//     the same exact products; only the order of the f32 sums differs.
+//   * dS K, dS^T Q and P^T dO have an f32 operand x (P or dS). It is split
+//     into two bf16 terms, hi = bf16(x) and lo = bf16(x - hi) (x - hi is exact
+//     in f32), and each product is two mma's, hi then lo, against the exact
+//     bf16 operand. |x - hi - lo| <= 2^-16 |x| (bf16 keeps 8 significant
+//     bits; each rounding is within 2^-8 of its value), so a sum over j of
+//     x_j b_j is off by at most 2^-16 sum_j |x_j b_j| plus the f32 sums'
+//     own rounding: far below the 2^-7 max|plain| tolerance of the tests.
+//     TF32 keeps 11 bits at the same cost, so it is worse here;
+//     tests/test_torch_flash_attention.py emulates the split on the CPU.
+//   * exp is the hardware's ex2.approx of x log2(e) (__expf), and the
+//     division by the row sum l a multiplication by its correctly rounded
+//     reciprocal: each differs from expf and IEEE division by a few f32 ulps
+//     (relative error below 2^-20 wherever exp(x) >= 2^-24), far below the
+//     bf16 rounding of P. P is still rounded to bf16 only after it is
+//     normalised, and S still rounds the scale and the bias separately.
+//
+// Layout. A block is 4 warps (128 threads) and owns a 64-row tile: 16 rows a
+// warp. It walks the other side's rows in 32-row steps. The m16n8 f32
+// accumulator of a warp's 16 x 32 score tile (4 fragments, 16 registers)
+// becomes the A operand of the next product in registers (the FA2 layout:
+// fragments 2j, 2j + 1 give k-step j), never through shared memory: bf16(P)
+// in B1's second pass, hi / lo of dS in the rows kernel. The columns kernel
+// computes S^T = K Q^T and dP^T = V dO^T with keys as rows, so P^T and dS^T
+// land as the A operands that dV += P^T dO and dK += dS^T Q need; it reads
+// each query column's stat_m, stat_l and dvec from shared memory, and works
+// 16 queries at a time so that its dK and dV accumulators (128 registers)
+// leave room for the rest.
+//   forward, one block per (query tile, bh), two passes over the key steps:
 //     1. the row max and sum of exp (rescaled as the max grows);
 //     2. the scores again, the normalised P, rounded to bf16 where the Pallas
-//        kernel rounds it, and O += P V in f32 registers.
+//        kernel rounds it, and O += bf16(P) V.
 //   backward, two kernels launched back to back on one stream:
-//     rows, one block per (bh, query tile): a first sweep over the key tiles
+//     rows, one block per (query tile, bh): a first sweep over the key steps
 //       gives rowsum(dP * P) (written to dvec), a second one dQ;
-//     columns, one block per (bh, key tile): a sweep over the query tiles
+//     columns, one block per (key tile, bh): a sweep over the query steps
 //       gives dK and dV in registers that the block alone owns.
-//   No atomics, and every sum is taken in a fixed order.
+//   No atomics, and every sum is taken in a fixed order: two launches on the
+//   same inputs give the same bits.
+//   Skipped work, none of which changes a bit: a warp whose 16 own rows all
+//   lie at or past S (nothing of it is stored) computes nothing; a warp whose
+//   P for a step is all 0.0f (checked on the computed values, e.g. keys
+//   above the causal diagonal) skips the products that would only add exact
+//   zeros: P V in B1, dP and dQ in the rows kernel, dP^T, dV and dK in the
+//   columns kernel.
 //
-// What bounds it on the card: at the attack step's shapes ([8*32, 288, 128])
-// the bytes (q, k, v, o, bias: ~78 MB forward) take ~23 us at 3.35 TB/s and
-// the operations (4 S^2 D per head forward, 10 S^2 D backward) ~11 / 28 us at
-// the bf16 tensor-core rate, so the byte time bounds both. This first design
-// runs every product as f32 FMAs on the CUDA cores (the backward's operands
-// are f32 by definition; the forward repeats Q K^T in its second pass), so
-// the CUDA cores' f32 rate, not the bytes, limits it. Tensor cores on the
-// bf16 operands, one-pass rescaling, and skipping fully masked causal tiles
-// are work for later changes.
+// Staging. Tiles stay bf16 in shared memory (8 KB per 32 x 128 step, 16 KB
+// per 64-row tile), each row's sixteen 16-byte chunks XOR-swizzled by
+// (row & 7), so that ldmatrix (and ldmatrix.trans for V, K, Q and dO as B
+// operands) reads 8 rows of one chunk column from 8 distinct bank groups. The
+// bias tile ([64][32] or [32][64] f32, 8 KB) is staged too, swizzled for the
+// reads of its accumulator layout; its rows are 4 S bytes, so it moves in
+// 16-byte copies when S % 4 == 0 and in 4-byte ones otherwise. Each step's
+// tiles are copied with cp.async into a second buffer while the current step
+// is multiplied; rows and columns at or past S are zero-filled by cp.async's
+// source size. Shared memory per block: 64 KB forward (Q; K, V, bias x 2),
+// 80 KB rows (Q, dO; K, V, bias x 2), 80.75 KB columns (K, V; Q, dO, bias
+// and the three row vectors x 2). ptxas (CUDA 12.8, sm_90a): 166 registers
+// forward, 179 rows, 252 columns, no spills; so 3 forward blocks or 2
+// backward blocks share an SM. Outputs go back through the warp's own rows
+// of a staged tile, as 16-byte stores.
 //
-// Thread layout (256 threads, tid = 16 ty + tx): in a 64 x 64 score tile a
-// thread owns rows 4 ty + r and columns tx + 16 c (r, c < 4); a row's 16
-// owners are one half-warp, so row reductions are xor shuffles. In a
-// 64 x 128 output tile it owns rows 4 ty + r and columns 4 tx + e and
-// 64 + 4 tx + e (e < 4). Staged rows are padded to 132 floats, so the
-// float4 reads of four neighbouring columns' rows fall in distinct banks.
+// What still holds them back (PERF.md): most of a step's instructions are
+// address arithmetic and element-wise work (the scale and bias, the
+// softmax, which the two-pass forward and the two-sweep rows kernel do
+// twice), not mma's; at 8-12 warps an SM the step is latency-bound rather
+// than bound by the tensor cores, the copies or L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,317 +106,478 @@
 
 namespace {
 
-constexpr int kD = 128;                      // head dim
-constexpr int kTile = 64;                    // rows of a query or key tile
-constexpr int kThreads = 256;
-constexpr int kStride = kD + 4;              // floats per staged row
-constexpr int kPStride = kTile + 4;          // floats per row of a P / dS tile
-constexpr int kStage = kTile * kStride;      // floats per staged tile
-constexpr int kPTile = kTile * kPStride;     // floats per P / dS tile
+constexpr int kD = 128;     // head dim
+constexpr int kOwn = 64;    // rows of the tile a block owns: 4 warps x 16
+constexpr int kStep = 32;   // rows of the other side's tile per step
+constexpr int kThreads = 128;
+constexpr int kChunks = kD / 8;  // 16-byte chunks per row
+constexpr uint32_t kOwnBytes = kOwn * kD * 2;     // 16 KB
+constexpr uint32_t kStepBytes = kStep * kD * 2;   // 8 KB
+constexpr uint32_t kBiasBytes = kOwn * kStep * 4; // 8 KB
+constexpr uint32_t kVecBytes = kStep * 4;
 
-constexpr size_t kFwdSmem = (3 * kStage + kPTile) * sizeof(float);
-constexpr size_t kRowSmem = (4 * kStage + kPTile) * sizeof(float);
-constexpr size_t kColSmem = (4 * kStage + 2 * kPTile) * sizeof(float);
+// a stage (double-buffered): two step tiles and the bias tile, and in the
+// columns kernel the step's stat_m, stat_l and dvec
+constexpr uint32_t kStage = 2 * kStepBytes + kBiasBytes;
+constexpr uint32_t kColStage = kStage + 3 * kVecBytes;
+constexpr size_t kFwdSmem = kOwnBytes + 2 * kStage;       // Q; K, V, bias x 2
+constexpr size_t kRowSmem = 2 * kOwnBytes + 2 * kStage;   // Q, dO; K, V, bias x 2
+constexpr size_t kColSmem = 2 * kOwnBytes + 2 * kColStage;  // K, V; Q, dO, bias, vectors x 2
 
-// Rows [r0, r0 + 64) of a [S, 128] bf16 matrix -> f32 [64][kStride]; rows at
-// or past S are zero.
-__device__ __forceinline__ void stage(float* dst, const __nv_bfloat16* src, int r0, int S) {
-  for (int c = threadIdx.x; c < kTile * (kD / 8); c += kThreads) {
-    const int r = c >> 4;
-    const int d8 = (c & 15) * 8;
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 b = a;
-    if (r0 + r < S) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r0 + r) * kD + d8);
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-      const float2 f0 = __bfloat1622float2(h[0]);
-      const float2 f1 = __bfloat1622float2(h[1]);
-      const float2 f2 = __bfloat1622float2(h[2]);
-      const float2 f3 = __bfloat1622float2(h[3]);
-      a = make_float4(f0.x, f0.y, f1.x, f1.y);
-      b = make_float4(f2.x, f2.y, f3.x, f3.y);
-    }
-    float* p = dst + r * kStride + d8;
-    reinterpret_cast<float4*>(p)[0] = a;
-    reinterpret_cast<float4*>(p)[1] = b;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of 16-byte chunk c of row r in a swizzled [rows][128] bf16 tile.
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return static_cast<uint32_t>(r * (kD * 2) + ((c ^ (r & 7)) << 4));
+}
+
+// Byte offset of element (r, col) of a swizzled [rows][Cols] f32 bias tile
+// (Cols 32 or 64: every row starts on bank 0). The chunk XOR keeps the reads
+// of one accumulator fragment on distinct banks: rows g of a warp's float2
+// reads (by rows), or rows 2t of its scalar reads (ByColumn, the columns
+// kernel's transposed fragments).
+template <int Cols, bool ByColumn>
+__device__ __forceinline__ uint32_t bias_off(int r, int col) {
+  const int key = ByColumn ? ((r >> 1) & 3) << 1 : (r & 3) << 1;
+  return static_cast<uint32_t>(r * Cols * 4 + (((col >> 2) ^ key) << 4) + ((col & 3) << 2));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// Wait until at most one group (the newest) is still in flight.
+__device__ __forceinline__ void cp_async_wait_prev() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
+
+// Rows [r0, r0 + Rows) of a [S, 128] bf16 matrix into a swizzled tile; rows
+// at or past S are zero.
+template <int Rows>
+__device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src, int r0, int S) {
+#pragma unroll
+  for (int u = 0; u < Rows * kChunks / kThreads; ++u) {
+    const int c = threadIdx.x + u * kThreads;
+    const int r = c / kChunks, ch = c % kChunks;
+    const bool valid = r0 + r < S;
+    cp_async16(dst + swz(r, ch), valid ? src + static_cast<size_t>(r0 + r) * kD + ch * 8 : src, valid);
   }
 }
 
-// acc[r][c] = sum_d A[4 ty + r][d] * B[tx + 16 c][d], f32, d in order.
-__device__ __forceinline__ void dot_tile(const float* A, const float* B, float acc[4][4], int ty, int tx) {
+// bias[i0 + r][j0 + col] (r < Rows, col < Cols) into a swizzled tile, zero
+// at or past S. Rows are 4 S bytes: 16-byte copies when S % 4 == 0, else
+// 4-byte ones.
+template <int Rows, int Cols, bool ByColumn>
+__device__ __forceinline__ void load_bias(uint32_t dst, const float* bias, int i0, int j0, int S) {
+  if (S % 4 == 0) {
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+    for (int u = 0; u < Rows * Cols / 4 / kThreads; ++u) {
+      const int c = threadIdx.x + u * kThreads;
+      const int r = c / (Cols / 4), col = 4 * (c % (Cols / 4));
+      const bool valid = i0 + r < S && j0 + col < S;
+      const float* src = valid ? bias + static_cast<size_t>(i0 + r) * S + j0 + col : bias;
+      cp_async16(dst + bias_off<Cols, ByColumn>(r, col), src, valid);
+    }
+  } else {
 #pragma unroll 4
-  for (int d = 0; d < kD; d += 4) {
-    float4 a[4], b[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) a[r] = *reinterpret_cast<const float4*>(A + (4 * ty + r) * kStride + d);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) b[c] = *reinterpret_cast<const float4*>(B + (tx + 16 * c) * kStride + d);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float s = acc[r][c];
-        s = fmaf(a[r].x, b[c].x, s);
-        s = fmaf(a[r].y, b[c].y, s);
-        s = fmaf(a[r].z, b[c].z, s);
-        s = fmaf(a[r].w, b[c].w, s);
-        acc[r][c] = s;
-      }
-  }
-}
-
-// s = s * scale + bias[i, j] (two roundings, as the plain version), -inf
-// for keys at or past S; query rows past S read no bias.
-__device__ __forceinline__ void scale_bias(float s[4][4], const float* bias, int i0, int j0, int ty,
-                                           int tx, int S, float scale) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = i0 + 4 * ty + r;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int j = j0 + tx + 16 * c;
-      if (j >= S) {
-        s[r][c] = -INFINITY;
-      } else {
-        const float b = i < S ? bias[static_cast<size_t>(i) * S + j] : 0.f;
-        s[r][c] = __fadd_rn(__fmul_rn(s[r][c], scale), b);
-      }
+    for (int u = 0; u < Rows * Cols / kThreads; ++u) {
+      const int c = threadIdx.x + u * kThreads;
+      const int r = c / Cols, col = c % Cols;
+      const bool valid = i0 + r < S && j0 + col < S;
+      const float* src = valid ? bias + static_cast<size_t>(i0 + r) * S + j0 + col : bias;
+      cp_async4(dst + bias_off<Cols, ByColumn>(r, col), src, valid);
     }
   }
 }
 
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
+// Entries [r0, r0 + kStep) of an f32 vector of length S; entries past S are 0.
+__device__ __forceinline__ void load_vec(uint32_t dst, const float* src, int r0, int S) {
+  if (threadIdx.x < kStep) {
+    const bool valid = r0 + threadIdx.x < S;
+    cp_async4(dst + 4 * threadIdx.x, valid ? src + r0 + threadIdx.x : src, valid);
+  }
 }
 
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+__device__ __forceinline__ void ldsm(uint32_t r[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
 }
 
-// acc[r][e] (e < 8) += sum_j T[4 ty + r][j] * M[j][cols(e)], j < 64 in order,
-// cols(e) = 4 tx + e (e < 4) and 64 + 4 tx + e - 4 (e >= 4).
-__device__ __forceinline__ void tile_times_rows(const float* T, const float* M, float acc[4][8], int ty, int tx) {
-#pragma unroll 2
-  for (int j = 0; j < kTile; j += 4) {
-    float4 t[4];
+__device__ __forceinline__ void ldsm_t(uint32_t r[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c += a b for one m16n8k16 tile: bf16 operands, f32 accumulator.
+__device__ __forceinline__ void mma(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) { return *reinterpret_cast<uint32_t*>(&v); }
+
+// bf16(x), bf16(y) in one register, x in the low half.
+__device__ __forceinline__ uint32_t pack(float x, float y) { return bits(__floats2bfloat162_rn(x, y)); }
+
+// The two-term split of (x, y): hi = bf16, lo = bf16 of the exact remainder.
+__device__ __forceinline__ void split(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 f = __bfloat1622float2(h);
+  hi = bits(h);
+  lo = pack(__fsub_rn(x, f.x), __fsub_rn(y, f.y));
+}
+
+// A operands of k-step j (16 columns) from the accumulator fragments of a
+// 16-row tile: fragments 2j (columns 16j + 0..7) and 2j + 1 (16j + 8..15).
+__device__ __forceinline__ void frag_a(uint32_t a[4], const float (*f)[4], int j) {
+  a[0] = pack(f[2 * j][0], f[2 * j][1]);
+  a[1] = pack(f[2 * j][2], f[2 * j][3]);
+  a[2] = pack(f[2 * j + 1][0], f[2 * j + 1][1]);
+  a[3] = pack(f[2 * j + 1][2], f[2 * j + 1][3]);
+}
+
+__device__ __forceinline__ void frag_a_split(uint32_t hi[4], uint32_t lo[4], const float (*f)[4], int j) {
+  split(f[2 * j][0], f[2 * j][1], hi[0], lo[0]);
+  split(f[2 * j][2], f[2 * j][3], hi[1], lo[1]);
+  split(f[2 * j + 1][0], f[2 * j + 1][1], hi[2], lo[2]);
+  split(f[2 * j + 1][2], f[2 * j + 1][3], hi[3], lo[3]);
+}
+
+// ldmatrix addresses. A operand: rows r0..r0+15 of a tile, k-step kk.
+__device__ __forceinline__ uint32_t a_addr(uint32_t tile, int r0, int kk, int lane) {
+  return tile + swz(r0 + (lane & 15), 2 * kk + (lane >> 4));
+}
+// B operand from a tile whose rows are the n index (B = tile^T): n-tiles
+// n0..n0+7 and n0+8..n0+15, k-step kk; regs {b0, b1} of each.
+__device__ __forceinline__ uint32_t bt_addr(uint32_t tile, int n0, int kk, int lane) {
+  return tile + swz(n0 + (lane & 7) + ((lane >> 4) << 3), 2 * kk + ((lane >> 3) & 1));
+}
+// B operand from a tile whose rows are the k index (ldmatrix.trans): k rows
+// k0..k0+15, n columns 16 np..16 np+15.
+__device__ __forceinline__ uint32_t bn_addr(uint32_t tile, int k0, int np, int lane) {
+  return tile + swz(k0 + (lane & 7) + (((lane >> 3) & 1) << 3), 2 * np + (lane >> 4));
+}
+
+// f[nt] (nt < 2 NPairs) = A[r0..r0+15] . B[n0 + 8 nt..]^T over the 128
+// dims, both operands staged tiles with one row per 128-dim vector.
+template <int NPairs>
+__device__ __forceinline__ void tile_dot(float f[][4], uint32_t ta, int r0, uint32_t tb, int n0, int lane) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) t[r] = *reinterpret_cast<const float4*>(T + (4 * ty + r) * kPStride + j);
+  for (int nt = 0; nt < 2 * NPairs; ++nt)
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const float4 m0 = *reinterpret_cast<const float4*>(M + (j + u) * kStride + 4 * tx);
-      const float4 m1 = *reinterpret_cast<const float4*>(M + (j + u) * kStride + 64 + 4 * tx);
+    for (int e = 0; e < 4; ++e) f[nt][e] = 0.f;
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float w = u == 0 ? t[r].x : u == 1 ? t[r].y : u == 2 ? t[r].z : t[r].w;
-        acc[r][0] = fmaf(w, m0.x, acc[r][0]);
-        acc[r][1] = fmaf(w, m0.y, acc[r][1]);
-        acc[r][2] = fmaf(w, m0.z, acc[r][2]);
-        acc[r][3] = fmaf(w, m0.w, acc[r][3]);
-        acc[r][4] = fmaf(w, m1.x, acc[r][4]);
-        acc[r][5] = fmaf(w, m1.y, acc[r][5]);
-        acc[r][6] = fmaf(w, m1.z, acc[r][6]);
-        acc[r][7] = fmaf(w, m1.w, acc[r][7]);
-      }
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    uint32_t a[4];
+    ldsm(a, a_addr(ta, r0, kk, lane));
+#pragma unroll
+    for (int np = 0; np < NPairs; ++np) {
+      uint32_t b[4];
+      ldsm(b, bt_addr(tb, n0 + 16 * np, kk, lane));
+      mma(f[2 * np], a, b[0], b[1]);
+      mma(f[2 * np + 1], a, b[2], b[3]);
     }
   }
 }
 
-// Rows 4 ty + r of a [64][128] register tile, times `mul`, to bf16 rows
-// r0 + 4 ty + r of dst (rows at or past S are not written).
-__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float acc[4][8], int r0, int S, int ty,
-                                           int tx, float mul) {
+// acc[16 n-tiles of the 128 dims] += A (one k-step of 16) . T[k0..k0+15][:],
+// T a staged tile with rows along k; with `lo`, A = hi + lo.
+__device__ __forceinline__ void acc_rows(float acc[16][4], const uint32_t hi[4], const uint32_t* lo, uint32_t tile,
+                                         int k0, int lane) {
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = r0 + 4 * ty + r;
-    if (row >= S) continue;
-    __nv_bfloat16* p = dst + static_cast<size_t>(row) * kD;
-    __nv_bfloat162 lo0 = __floats2bfloat162_rn(acc[r][0] * mul, acc[r][1] * mul);
-    __nv_bfloat162 lo1 = __floats2bfloat162_rn(acc[r][2] * mul, acc[r][3] * mul);
-    __nv_bfloat162 hi0 = __floats2bfloat162_rn(acc[r][4] * mul, acc[r][5] * mul);
-    __nv_bfloat162 hi1 = __floats2bfloat162_rn(acc[r][6] * mul, acc[r][7] * mul);
-    reinterpret_cast<__nv_bfloat162*>(p + 4 * tx)[0] = lo0;
-    reinterpret_cast<__nv_bfloat162*>(p + 4 * tx)[1] = lo1;
-    reinterpret_cast<__nv_bfloat162*>(p + 64 + 4 * tx)[0] = hi0;
-    reinterpret_cast<__nv_bfloat162*>(p + 64 + 4 * tx)[1] = hi1;
+  for (int np = 0; np < kD / 16; ++np) {
+    uint32_t b[4];
+    ldsm_t(b, bn_addr(tile, k0, np, lane));
+    mma(acc[2 * np], hi, b[0], b[1]);
+    mma(acc[2 * np + 1], hi, b[2], b[3]);
+    if (lo != nullptr) {
+      mma(acc[2 * np], lo, b[0], b[1]);
+      mma(acc[2 * np + 1], lo, b[2], b[3]);
+    }
   }
 }
 
-__device__ __forceinline__ void zero(float acc[4][8]) {
+// s = s * scale + bias (two roundings, as the plain version) for the warp's
+// 16 x kStep score fragments: rows r0 + g (+ 8) of the staged [kOwn][kStep]
+// bias tile, columns 8 nt + 2 t (+ 1); -inf for keys j0 + column at or past
+// S (the staged bias of query rows past S is 0).
+__device__ __forceinline__ void scale_bias(float s[kStep / 8][4], const unsigned char* btile, int r0, int j0, int S,
+                                           float scale, int g, int t) {
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int h = 0; h < 2; ++h)
 #pragma unroll
-    for (int e = 0; e < 8; ++e) acc[r][e] = 0.f;
+    for (int nt = 0; nt < kStep / 8; ++nt) {
+      const int col = 8 * nt + 2 * t;
+      const float2 b = *reinterpret_cast<const float2*>(btile + bias_off<kStep, false>(r0 + g + 8 * h, col));
+      float& x0 = s[nt][2 * h];
+      float& x1 = s[nt][2 * h + 1];
+      x0 = j0 + col < S ? __fadd_rn(__fmul_rn(x0, scale), b.x) : -INFINITY;
+      x1 = j0 + col + 1 < S ? __fadd_rn(__fmul_rn(x1, scale), b.y) : -INFINITY;
+    }
 }
 
-// B1. grid (BH, query tiles).
+// Reductions over the 4 lanes (a quad) that share an accumulator row.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// True on every lane when every value of the warp's N fragments is 0: a
+// product with them as its A operand would add exact zeros to its sums.
+template <int N>
+__device__ __forceinline__ bool warp_all_zero(const float (*f)[4]) {
+  bool z = true;
+#pragma unroll
+  for (int nt = 0; nt < N; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) z = z && f[nt][e] == 0.f;
+  return __all_sync(0xffffffffu, z);
+}
+
+__device__ __forceinline__ void zero(float acc[16][4]) {
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+}
+
+// The warp's 16 x 128 accumulator, times `mul`, to bf16 rows
+// row0 + 0..15 of dst (rows at or past S are not written), through rows
+// r0..r0+15 of the staged tile at `stage`, which the warp alone reads.
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float acc[16][4], unsigned char* stage, int r0,
+                                           int row0, int S, float mul, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + g + 8 * h;
+      *reinterpret_cast<uint32_t*>(stage + swz(r, nt) + 4 * t) =
+          pack(acc[nt][2 * h] * mul, acc[nt][2 * h + 1] * mul);
+    }
+  __syncwarp();
+#pragma unroll
+  for (int u = 0; u < 16 * kChunks / 32; ++u) {
+    const int c = lane + 32 * u;
+    const int r = c / kChunks, ch = c % kChunks;
+    if (row0 + r < S)
+      *reinterpret_cast<uint4*>(dst + static_cast<size_t>(row0 + r) * kD + ch * 8) =
+          *reinterpret_cast<const uint4*>(stage + swz(r0 + r, ch));
+  }
+}
+
+// B1. grid (query tiles, BH).
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
                  __nv_bfloat16* __restrict__ o, float* __restrict__ stat_m, float* __restrict__ stat_l,
                  int S, int heads, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + kStage;
-  float* Vs = Ks + kStage;
-  float* Ps = Vs + kStage;
-  const int bh = blockIdx.x;
-  const int i0 = blockIdx.y * kTile;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t base_addr = smem_addr(smem);
+  const uint32_t sQ = base_addr;
+  const uint32_t kStages = kOwnBytes;  // offset of stage 0: K, V, bias
+  const int i0 = blockIdx.x * kOwn;
+  const int bh = blockIdx.y;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * (threadIdx.x >> 5);
   const size_t base = static_cast<size_t>(bh) * S * kD;
   const float* bias_b = bias + static_cast<size_t>(bh / heads) * S * S;
-  const int n_tiles = (S + kTile - 1) / kTile;
+  const int n = (S + kStep - 1) / kStep;
 
-  stage(Qs, q + base, i0, S);
-  float m[4], l[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-  }
-  float s[4][4];
+  // iterations 0..n-1: pass 1 over key step `it`; n..2n-1: pass 2 over it - n
+  auto fetch = [&](int it, int buf) {
+    const int j0 = (it < n ? it : it - n) * kStep;
+    const uint32_t st = base_addr + kStages + buf * kStage;
+    load_tile<kStep>(st, k + base, j0, S);
+    if (it >= n) load_tile<kStep>(st + kStepBytes, v + base, j0, S);
+    load_bias<kOwn, kStep, false>(st + 2 * kStepBytes, bias_b, i0, j0, S);
+  };
+  load_tile<kOwn>(sQ, q + base, i0, S);
+  fetch(0, 0);
+  cp_async_commit();
 
-  // pass 1: row max and sum of exp; key tile 0 holds key 0 < S, so the max
-  // is finite from the first tile on
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    __syncthreads();
-    stage(Ks, k + base, kt * kTile, S);
-    __syncthreads();
-    dot_tile(Qs, Ks, s, ty, tx);
-    scale_bias(s, bias_b, i0, kt * kTile, ty, tx, S, scale);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float mx = half_warp_max(fmaxf(fmaxf(s[r][0], s[r][1]), fmaxf(s[r][2], s[r][3])));
-      const float m_new = fmaxf(m[r], mx);
-      float e = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) e += expf(s[r][c] - m_new);
-      l[r] = l[r] * expf(m[r] - m_new) + half_warp_sum(e);
-      m[r] = m_new;
-    }
-  }
-
-  // pass 2: P = exp(S - m) / l, rounded to bf16, and O += P V
-  float acc[4][8];
+  // a warp whose 16 rows all lie at or past S has nothing to store
+  const bool live = i0 + r0 < S;
+  // rows g, g + 8: max, sum of exp and its reciprocal
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, rl[2] = {0.f, 0.f};
+  float acc[16][4];
   zero(acc);
-  for (int kt = 0; kt < n_tiles; ++kt) {
+  for (int it = 0; it < 2 * n; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < 2 * n) fetch(it + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait_prev();
     __syncthreads();
-    stage(Ks, k + base, kt * kTile, S);
-    stage(Vs, v + base, kt * kTile, S);
-    __syncthreads();
-    dot_tile(Qs, Ks, s, ty, tx);
-    scale_bias(s, bias_b, i0, kt * kTile, ty, tx, S, scale);
+    const int j0 = (it < n ? it : it - n) * kStep;
+    const uint32_t st = kStages + buf * kStage;
+    if (live) {
+      float s[kStep / 8][4];
+      tile_dot<kStep / 16>(s, sQ, r0, base_addr + st, 0, lane);
+      scale_bias(s, smem + st + 2 * kStepBytes, r0, j0, S, scale, g, t);
+      if (it < n) {
+        // the row max and sum of exp; key step 0 holds key 0 < S, so the
+        // max is finite from the first step on
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+        for (int h = 0; h < 2; ++h) {
+          float mx = -INFINITY;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = expf(s[r][c] - m[r]) / l[r];
-        Ps[(4 * ty + r) * kPStride + tx + 16 * c] = __bfloat162float(__float2bfloat16_rn(p));
+          for (int nt = 0; nt < kStep / 8; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * h], s[nt][2 * h + 1]));
+          const float m_new = fmaxf(m[h], quad_max(mx));
+          float e = 0.f;
+#pragma unroll
+          for (int nt = 0; nt < kStep / 8; ++nt) e += __expf(s[nt][2 * h] - m_new) + __expf(s[nt][2 * h + 1] - m_new);
+          l[h] = l[h] * __expf(m[h] - m_new) + quad_sum(e);
+          m[h] = m_new;
+          rl[h] = __frcp_rn(l[h]);
+        }
+      } else {
+        // P = exp(S - m) / l, rounded to bf16, and O += P V unless P is 0
+#pragma unroll
+        for (int nt = 0; nt < kStep / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] = __expf(s[nt][e] - m[e >> 1]) * rl[e >> 1];
+        if (!warp_all_zero<kStep / 8>(s)) {
+#pragma unroll
+          for (int j = 0; j < kStep / 16; ++j) {
+            uint32_t a[4];
+            frag_a(a, s, j);
+            acc_rows(acc, a, nullptr, base_addr + st + kStepBytes, 16 * j, lane);
+          }
+        }
       }
+    }
     __syncthreads();
-    tile_times_rows(Ps, Vs, acc, ty, tx);
   }
-  store_rows(o + base, acc, i0, S, ty, tx, 1.f);
-  if (tx == 0) {
+  store_rows(o + base, acc, smem, r0, i0 + r0, S, 1.f, lane);
+  if (t == 0) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = i0 + 4 * ty + r;
+    for (int h = 0; h < 2; ++h) {
+      const int i = i0 + r0 + g + 8 * h;
       if (i < S) {
-        stat_m[static_cast<size_t>(bh) * S + i] = m[r];
-        stat_l[static_cast<size_t>(bh) * S + i] = l[r];
+        stat_m[static_cast<size_t>(bh) * S + i] = m[h];
+        stat_l[static_cast<size_t>(bh) * S + i] = l[h];
       }
     }
   }
 }
 
-// B2, rows. grid (BH, query tiles): dvec and dQ.
+// B2, rows. grid (query tiles, BH): dvec and dQ.
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_rows_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
                       const __nv_bfloat16* __restrict__ dout, const float* __restrict__ stat_m,
                       const float* __restrict__ stat_l, float* __restrict__ dvec,
                       __nv_bfloat16* __restrict__ dq, int S, int heads, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + kStage;
-  float* Ks = dOs + kStage;
-  float* Vs = Ks + kStage;
-  float* dSs = Vs + kStage;
-  const int bh = blockIdx.x;
-  const int i0 = blockIdx.y * kTile;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t base_addr = smem_addr(smem);
+  const uint32_t sQ = base_addr;
+  const uint32_t sdO = sQ + kOwnBytes;
+  const uint32_t kStages = 2 * kOwnBytes;  // offset of stage 0: K, V, bias
+  const int i0 = blockIdx.x * kOwn;
+  const int bh = blockIdx.y;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * (threadIdx.x >> 5);
   const size_t base = static_cast<size_t>(bh) * S * kD;
   const float* bias_b = bias + static_cast<size_t>(bh / heads) * S * S;
-  const int n_tiles = (S + kTile - 1) / kTile;
+  const int n = (S + kStep - 1) / kStep;
 
-  stage(Qs, q + base, i0, S);
-  stage(dOs, dout + base, i0, S);
-  float m[4], l[4], dsum[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = i0 + 4 * ty + r;
-    m[r] = i < S ? stat_m[static_cast<size_t>(bh) * S + i] : 0.f;
-    l[r] = i < S ? stat_l[static_cast<size_t>(bh) * S + i] : 1.f;
-    dsum[r] = 0.f;
-  }
-  float s[4][4], dp[4][4];
+  // iterations 0..n-1: sweep 1 (rowsum(dP * P)) over key step `it`;
+  // n..2n-1: sweep 2 (dS, dQ += dS K) over key step it - n
+  auto fetch = [&](int it, int buf) {
+    const int j0 = (it < n ? it : it - n) * kStep;
+    const uint32_t st = base_addr + kStages + buf * kStage;
+    load_tile<kStep>(st, k + base, j0, S);
+    load_tile<kStep>(st + kStepBytes, v + base, j0, S);
+    load_bias<kOwn, kStep, false>(st + 2 * kStepBytes, bias_b, i0, j0, S);
+  };
+  load_tile<kOwn>(sQ, q + base, i0, S);
+  load_tile<kOwn>(sdO, dout + base, i0, S);
+  fetch(0, 0);
+  cp_async_commit();
 
-  // sweep 1: rowsum(dP * P)
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    __syncthreads();
-    stage(Ks, k + base, kt * kTile, S);
-    stage(Vs, v + base, kt * kTile, S);
-    __syncthreads();
-    dot_tile(Qs, Ks, s, ty, tx);
-    scale_bias(s, bias_b, i0, kt * kTile, ty, tx, S, scale);
-    dot_tile(dOs, Vs, dp, ty, tx);
+  const bool live = i0 + r0 < S;
+  float m[2], rl[2], dsum[2];
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) dsum[r] += dp[r][c] * (expf(s[r][c] - m[r]) / l[r]);
+  for (int h = 0; h < 2; ++h) {
+    const int i = i0 + r0 + g + 8 * h;
+    m[h] = i < S ? stat_m[static_cast<size_t>(bh) * S + i] : 0.f;
+    rl[h] = i < S ? __frcp_rn(stat_l[static_cast<size_t>(bh) * S + i]) : 1.f;
+    dsum[h] = 0.f;
   }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) dsum[r] = half_warp_sum(dsum[r]);
-  if (tx == 0) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = i0 + 4 * ty + r;
-      if (i < S) dvec[static_cast<size_t>(bh) * S + i] = dsum[r];
-    }
-  }
-
-  // sweep 2: dS = P (dP - dsum), dQ += dS K
-  float acc[4][8];
+  float acc[16][4];
   zero(acc);
-  for (int kt = 0; kt < n_tiles; ++kt) {
+  for (int it = 0; it < 2 * n; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < 2 * n) fetch(it + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait_prev();
     __syncthreads();
-    stage(Ks, k + base, kt * kTile, S);
-    stage(Vs, v + base, kt * kTile, S);
-    __syncthreads();
-    dot_tile(Qs, Ks, s, ty, tx);
-    scale_bias(s, bias_b, i0, kt * kTile, ty, tx, S, scale);
-    dot_tile(dOs, Vs, dp, ty, tx);
+    const int j0 = (it < n ? it : it - n) * kStep;
+    const uint32_t st = kStages + buf * kStage;
+    if (live) {
+      // P in place of S; a step whose P is all 0 adds nothing to dsum or dQ
+      float s[kStep / 8][4];
+      tile_dot<kStep / 16>(s, sQ, r0, base_addr + st, 0, lane);
+      scale_bias(s, smem + st + 2 * kStepBytes, r0, j0, S, scale, g, t);
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+      for (int nt = 0; nt < kStep / 8; ++nt)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = expf(s[r][c] - m[r]) / l[r];
-        dSs[(4 * ty + r) * kPStride + tx + 16 * c] = p * (dp[r][c] - dsum[r]);
+        for (int e = 0; e < 4; ++e) s[nt][e] = __expf(s[nt][e] - m[e >> 1]) * rl[e >> 1];
+      if (!warp_all_zero<kStep / 8>(s)) {
+        float dp[kStep / 8][4];
+        tile_dot<kStep / 16>(dp, sdO, r0, base_addr + st + kStepBytes, 0, lane);
+        if (it < n) {
+#pragma unroll
+          for (int nt = 0; nt < kStep / 8; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dsum[e >> 1] += dp[nt][e] * s[nt][e];
+        } else {
+          // dS = P (dP - dsum) in place of dP, then dQ += dS K
+#pragma unroll
+          for (int nt = 0; nt < kStep / 8; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dp[nt][e] = s[nt][e] * (dp[nt][e] - dsum[e >> 1]);
+#pragma unroll
+          for (int j = 0; j < kStep / 16; ++j) {
+            uint32_t hi[4], lo[4];
+            frag_a_split(hi, lo, dp, j);
+            acc_rows(acc, hi, lo, base_addr + st, 16 * j, lane);
+          }
+        }
       }
+      if (it == n - 1) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          dsum[h] = quad_sum(dsum[h]);
+          const int i = i0 + r0 + g + 8 * h;
+          if (t == 0 && i < S) dvec[static_cast<size_t>(bh) * S + i] = dsum[h];
+        }
+      }
+    }
     __syncthreads();
-    tile_times_rows(dSs, Ks, acc, ty, tx);
   }
-  store_rows(dq + base, acc, i0, S, ty, tx, scale);
+  store_rows(dq + base, acc, smem, r0, i0 + r0, S, scale, lane);
 }
 
-// B2, columns. grid (BH, key tiles): dK and dV. Reads dvec of every query
+// B2, columns. grid (key tiles, BH): dK and dV. Reads dvec of every query
 // row, so it runs after the rows kernel on the same stream.
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_cols_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -377,87 +586,89 @@ flash_bwd_cols_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
                       const float* __restrict__ stat_l, const float* __restrict__ dvec,
                       __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S, int heads,
                       float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + kStage;
-  float* Qs = Vs + kStage;
-  float* dOs = Qs + kStage;
-  float* Ps = dOs + kStage;
-  float* dSs = Ps + kPTile;
-  const int bh = blockIdx.x;
-  const int j0 = blockIdx.y * kTile;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t base_addr = smem_addr(smem);
+  const uint32_t sK = base_addr;
+  const uint32_t sV = sK + kOwnBytes;
+  const uint32_t kStages = 2 * kOwnBytes;  // offset of stage 0: Q, dO, bias, m, l, dvec
+  const int j0 = blockIdx.x * kOwn;
+  const int bh = blockIdx.y;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * (threadIdx.x >> 5);
   const size_t base = static_cast<size_t>(bh) * S * kD;
   const size_t row_base = static_cast<size_t>(bh) * S;
   const float* bias_b = bias + static_cast<size_t>(bh / heads) * S * S;
-  const int n_tiles = (S + kTile - 1) / kTile;
+  const int n = (S + kStep - 1) / kStep;
 
-  stage(Ks, k + base, j0, S);
-  stage(Vs, v + base, j0, S);
-  float acc_dk[4][8], acc_dv[4][8];
+  auto fetch = [&](int qt, int buf) {
+    const int i0 = qt * kStep;
+    const uint32_t st = base_addr + kStages + buf * kColStage;
+    load_tile<kStep>(st, q + base, i0, S);
+    load_tile<kStep>(st + kStepBytes, dout + base, i0, S);
+    load_bias<kStep, kOwn, true>(st + 2 * kStepBytes, bias_b, i0, j0, S);
+    load_vec(st + kStage, stat_m + row_base, i0, S);
+    load_vec(st + kStage + kVecBytes, stat_l + row_base, i0, S);
+    load_vec(st + kStage + 2 * kVecBytes, dvec + row_base, i0, S);
+  };
+  load_tile<kOwn>(sK, k + base, j0, S);
+  load_tile<kOwn>(sV, v + base, j0, S);
+  fetch(0, 0);
+  cp_async_commit();
+
+  const bool live = j0 + r0 < S;
+  float acc_dk[16][4], acc_dv[16][4];
   zero(acc_dk);
   zero(acc_dv);
-  float s[4][4], dp[4][4];
-
-  for (int qt = 0; qt < n_tiles; ++qt) {
-    const int i0 = qt * kTile;
+  for (int qt = 0; qt < n; ++qt) {
+    const int buf = qt & 1;
+    if (qt + 1 < n) fetch(qt + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait_prev();
     __syncthreads();
-    stage(Qs, q + base, i0, S);
-    stage(dOs, dout + base, i0, S);
-    __syncthreads();
-    // score rows are queries i = i0 + 4 ty + r, columns keys j = j0 + tx + 16 c
-    dot_tile(Qs, Ks, s, ty, tx);
-    scale_bias(s, bias_b, i0, j0, ty, tx, S, scale);
-    dot_tile(dOs, Vs, dp, ty, tx);
+    const int i0 = qt * kStep;
+    const uint32_t st = kStages + buf * kColStage;
+    const uint32_t tQ = base_addr + st, tdO = tQ + kStepBytes;
+    const unsigned char* btile = smem + st + 2 * kStepBytes;
+    const float* vm = reinterpret_cast<const float*>(smem + st + kStage);
+    const float* vl = vm + kStep;
+    const float* vd = vl + kStep;
+    // 16 queries at a time: S^T and dP^T fragments with rows keys
+    // j0 + r0 + g (+ 8) and columns queries i0 + 16 c + 8 nt + 2 t (+ 1)
+    // (P^T in place of S^T; a chunk whose P^T is all 0 adds nothing)
+#pragma unroll 1
+    for (int c = 0; c < kStep / 16 && live; ++c) {
+      float sc[2][4];
+      tile_dot<1>(sc, sK, r0, tQ, 16 * c, lane);
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = i0 + 4 * ty + r;
-      const bool valid = i < S;
-      const float mi = valid ? stat_m[row_base + i] : 0.f;
-      const float li = valid ? stat_l[row_base + i] : 1.f;
-      const float di = valid ? dvec[row_base + i] : 0.f;
+      for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = valid ? expf(s[r][c] - mi) / li : 0.f;
-        Ps[(4 * ty + r) * kPStride + tx + 16 * c] = p;
-        dSs[(4 * ty + r) * kPStride + tx + 16 * c] = p * (dp[r][c] - di);
-      }
+        for (int e = 0; e < 4; ++e) {
+          const int il = 16 * c + 8 * nt + 2 * t + (e & 1);
+          const int jl = r0 + g + 8 * (e >> 1);
+          float p = 0.f;
+          if (i0 + il < S && j0 + jl < S) {
+            const float b = *reinterpret_cast<const float*>(btile + bias_off<kOwn, true>(il, jl));
+            p = __expf(__fadd_rn(__fmul_rn(sc[nt][e], scale), b) - vm[il]) * __frcp_rn(vl[il]);
+          }
+          sc[nt][e] = p;
+        }
+      if (warp_all_zero<2>(sc)) continue;
+      float dpt[2][4];
+      tile_dot<1>(dpt, sV, r0, tdO, 16 * c, lane);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dpt[nt][e] = sc[nt][e] * (dpt[nt][e] - vd[16 * c + 8 * nt + 2 * t + (e & 1)]);
+      uint32_t hi[4], lo[4];
+      frag_a_split(hi, lo, sc, 0);
+      acc_rows(acc_dv, hi, lo, tdO, 16 * c, lane);
+      frag_a_split(hi, lo, dpt, 0);
+      acc_rows(acc_dk, hi, lo, tQ, 16 * c, lane);
     }
     __syncthreads();
-    // dV[j] += sum_i P[i][j] dO[i];  dK[j] += sum_i dS[i][j] Q[i]   (j = j0 + 4 ty + r)
-#pragma unroll 2
-    for (int i = 0; i < kTile; ++i) {
-      const float4 pv = *reinterpret_cast<const float4*>(Ps + i * kPStride + 4 * ty);
-      const float4 sv = *reinterpret_cast<const float4*>(dSs + i * kPStride + 4 * ty);
-      const float4 o0 = *reinterpret_cast<const float4*>(dOs + i * kStride + 4 * tx);
-      const float4 o1 = *reinterpret_cast<const float4*>(dOs + i * kStride + 64 + 4 * tx);
-      const float4 q0 = *reinterpret_cast<const float4*>(Qs + i * kStride + 4 * tx);
-      const float4 q1 = *reinterpret_cast<const float4*>(Qs + i * kStride + 64 + 4 * tx);
-      const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
-      const float sr[4] = {sv.x, sv.y, sv.z, sv.w};
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        acc_dv[r][0] = fmaf(pr[r], o0.x, acc_dv[r][0]);
-        acc_dv[r][1] = fmaf(pr[r], o0.y, acc_dv[r][1]);
-        acc_dv[r][2] = fmaf(pr[r], o0.z, acc_dv[r][2]);
-        acc_dv[r][3] = fmaf(pr[r], o0.w, acc_dv[r][3]);
-        acc_dv[r][4] = fmaf(pr[r], o1.x, acc_dv[r][4]);
-        acc_dv[r][5] = fmaf(pr[r], o1.y, acc_dv[r][5]);
-        acc_dv[r][6] = fmaf(pr[r], o1.z, acc_dv[r][6]);
-        acc_dv[r][7] = fmaf(pr[r], o1.w, acc_dv[r][7]);
-        acc_dk[r][0] = fmaf(sr[r], q0.x, acc_dk[r][0]);
-        acc_dk[r][1] = fmaf(sr[r], q0.y, acc_dk[r][1]);
-        acc_dk[r][2] = fmaf(sr[r], q0.z, acc_dk[r][2]);
-        acc_dk[r][3] = fmaf(sr[r], q0.w, acc_dk[r][3]);
-        acc_dk[r][4] = fmaf(sr[r], q1.x, acc_dk[r][4]);
-        acc_dk[r][5] = fmaf(sr[r], q1.y, acc_dk[r][5]);
-        acc_dk[r][6] = fmaf(sr[r], q1.z, acc_dk[r][6]);
-        acc_dk[r][7] = fmaf(sr[r], q1.w, acc_dk[r][7]);
-      }
-    }
   }
-  store_rows(dk + base, acc_dk, j0, S, ty, tx, scale);
-  store_rows(dv + base, acc_dv, j0, S, ty, tx, 1.f);
+  store_rows(dk + base, acc_dk, smem, r0, j0 + r0, S, scale, lane);
+  store_rows(dv + base, acc_dv, smem + kOwnBytes, r0, j0 + r0, S, 1.f, lane);
 }
 
 // Raise the kernels' dynamic shared-memory limit once per device, so that
@@ -489,7 +700,7 @@ extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void
                                         void* stream) {
   cudaError_t err = allow_smem();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(bh, (seq + kTile - 1) / kTile);
+  const dim3 grid((seq + kOwn - 1) / kOwn, bh);
   flash_fwd_kernel<<<grid, kThreads, kFwdSmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(o),
@@ -506,7 +717,7 @@ extern "C" int flash_attention_bwd_bf16(const void* q, const void* k, const void
   cudaError_t err = allow_smem();
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(bh, (seq + kTile - 1) / kTile);
+  const dim3 grid((seq + kOwn - 1) / kOwn, bh);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   const auto* kp = static_cast<const __nv_bfloat16*>(k);
   const auto* vp = static_cast<const __nv_bfloat16*>(v);

@@ -18,6 +18,7 @@ from roboticattack_tpu.ops import attention as jattn
 from roboticattack_tpu.ops.flash_attention import mha_flash as jmha_flash
 from roboticattack_torch.ops import attention as tattn
 from roboticattack_torch.ops.flash_attention import (
+    _probs,
     check_kernel_inputs,
     flash_attention,
     flash_attention_bwd_plain,
@@ -122,6 +123,48 @@ def test_wrapper_refuses_per_head_bias_and_gqa():
         mha_flash(q, q, q, torch.zeros((1, 4, 8, 8)))
     with pytest.raises(ValueError, match="GQA"):
         mha_flash(q, q[:, :2], q[:, :2])
+
+
+def _split_operands(s, seed):
+    """P and dS as B2 forms them ([1, 2, S, S] f32, from seeded bf16 q/k/v/dO
+    [1, 2, S, 128] and a causal bias), and those bf16 operands."""
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((1, 2, s, 128)).astype(np.float32)).to(torch.bfloat16)
+                   for _ in range(4))
+    bias = tattn.causal_bias(s, s)[:, 0]
+    p = _probs(q, k, bias)
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    return {"P": p, "dS": ds}, {"K": k, "Q": q, "dO": do}
+
+
+SPLIT_BOUND = 2.0**-15  # csrc/flash_attention.cu: the split alone is within 2^-16
+
+
+@pytest.mark.parametrize("x_name,b_name,transpose", [
+    ("dS", "K", False),   # dQ = dS K      (rows kernel)
+    ("dS", "Q", True),    # dK = dS^T Q    (columns kernel)
+    ("P", "dO", True),    # dV = P^T dO    (columns kernel)
+])
+@pytest.mark.parametrize("s", [40, 288])
+def test_two_term_bf16_split_error_is_within_the_stated_bound(x_name, b_name, transpose, s):
+    """B2's products with an f32 operand x run as hi B + lo B on the tensor
+    cores, hi = bf16(x), lo = bf16(x - hi), B bf16, f32 sums. Emulated here:
+    each entry is within 2^-15 sum_j |x_j b_j| of the float64 product, and
+    the one-term product bf16(x) B is not (the bound separates the two)."""
+    xs, bs = _split_operands(s, seed=s)
+    x, b = xs[x_name], bs[b_name].float()
+    if transpose:
+        x = x.transpose(-1, -2)
+    hi = x.bfloat16()
+    lo = (x - hi.float()).bfloat16()
+    assert ((x - hi.float() - lo.float()).abs() <= 2.0**-16 * x.abs()).all()
+    got = torch.matmul(hi.float(), b) + torch.matmul(lo.float(), b)
+    exact = torch.matmul(x.double(), b.double())
+    bound = SPLIT_BOUND * torch.matmul(x.double().abs(), b.double().abs())
+    assert ((got.double() - exact).abs() <= bound).all()
+    one_term = torch.matmul(hi.float(), b).double()
+    assert ((one_term - exact).abs() > bound).any()
 
 
 @pytest.mark.parametrize("shape,dtype,bias_shape,match", [
