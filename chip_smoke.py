@@ -35,6 +35,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import base64
+import ctypes
 import dataclasses
 import gc
 import json
@@ -64,6 +65,7 @@ from roboticattack_torch.ops import flash_attention as fa
 from roboticattack_torch.ops import kernel_build
 from roboticattack_torch.ops.attention import causal_bias, padding_bias
 from roboticattack_torch.ops.q4_matmul import (
+    _bind,
     _unpack_nibbles,
     q4_matmul,
     q4_matmul_plain,
@@ -78,9 +80,10 @@ SEED = 0
 GROUP = 128  # the 7B's int4 group size (models/quant.py int4_group_size_for)
 # (label, out, in) of the decode tail's projections; launches per layer
 PROJ = [("q/k/v/o_w", 4096, 4096, 4), ("gate/up_w", 11008, 4096, 2), ("down_w", 4096, 11008, 1)]
+# mode -> (name, the TPU kernel it replaces, the body the 7B's shapes take)
 KERNELS = {
-    "grouped": ("q4_matmul_grouped", "roboticattack_tpu/ops/q4_matmul.py:70"),
-    "dense": ("q4_matmul_dense", "roboticattack_tpu/ops/q4_matmul.py:96"),
+    "grouped": ("q4_matmul_grouped_mma", "roboticattack_tpu/ops/q4_matmul.py:70", "mma"),
+    "dense": ("q4_matmul_dense", "roboticattack_tpu/ops/q4_matmul.py:96", "fma"),
 }
 SOURCE = "roboticattack_torch/csrc/q4_matmul.cu"
 FLASH_KERNELS = {
@@ -209,9 +212,14 @@ def phase_kernels(bw: float):
             bound_ms = max(byte_ms, op_ms)
             library_ms = device_ms(lambda i: torch.matmul(y, dense_w[i % len(dense_w)].T))
             for mode in ("grouped", "dense"):
+                before = dict(q4_matmul.launches_by_body)
                 got = q4_matmul(y, ws[0], scs[0], mode=mode)
                 want = q4_matmul_plain(y, ws[0], scs[0], mode, torch.bfloat16)
                 torch.cuda.synchronize()
+                body = [b for b, n in q4_matmul.launches_by_body.items() if n != before[b]]
+                if body != [KERNELS[mode][2]]:
+                    raise AssertionError(f"{mode} {label} m={m} ran the body {body}, "
+                                         f"not {KERNELS[mode][2]!r}")
                 err = (got.float() - want.float()).abs().max().item()
                 ref = want.float().abs().max().item()
                 # both sum in f32 in different orders and round to bf16: at
@@ -229,14 +237,14 @@ def phase_kernels(bw: float):
                 plain_ms = device_ms(
                     lambda i: q4_matmul_plain(y, ws[i % nbuf], scs[i % nbuf], mode, torch.bfloat16),
                     calls=4, replays=3)
-                row = dict(mode=mode, shape=label, out=out_dim, inp=in_dim, m=m,
+                row = dict(mode=mode, body=body[0], shape=label, out=out_dim, inp=in_dim, m=m,
                            per_layer=per_layer, max_abs_err=err, tol=tol, ms=ms, host_ms=host_ms,
                            plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                            byte_ms=byte_ms, op_ms=op_ms,
                            bound_by="bytes" if byte_ms >= op_ms else "operations",
                            gbps=nbytes / (ms * 1e-3) / 1e9)
                 rows.append(row)
-                log(f"kernel {KERNELS[mode][0]} {label} [{out_dim}x{in_dim}] m={m}: "
+                log(f"kernel {KERNELS[mode][0]} ({body[0]} body) {label} [{out_dim}x{in_dim}] m={m}: "
                     f"max_abs_err={err:.3g} (tol {tol:.3g}) kernel_ms={ms:.5f} "
                     f"eager_back_to_back_ms={host_ms:.5f} "
                     f"plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
@@ -246,6 +254,107 @@ def phase_kernels(bw: float):
         del ws, scs, dense_w
         torch.cuda.empty_cache()
     return rows
+
+
+# Variants of B4's tensor-core body for `sweep_b4`: text replacements in
+# csrc/q4_matmul.cu. "as is" is the source unchanged. A "diagnostic" variant
+# computes something else (its error is printed, not checked): "no mma"
+# keeps the loads and drops the unpacking and the products.
+B4_VARIANTS = {
+    "as is": {},
+    "3 stages": {"kStages = 2;": "kStages = 3;"},
+    "1 row tile a warp": {"kMTiles = 2;": "kMTiles = 1;"},
+    "L2 prefetch 256B": {"cp.async.cg.shared.global [%0]": "cp.async.cg.shared.global.L2::256B [%0]"},
+    "diagnostic: no mma": {
+        "kblock_mma(part[mt], wa, wb, b);":
+        "part[mt][0] += __uint_as_float((wa.x ^ wa.w ^ wb.x ^ wb.w ^ b[0][0] ^ b[7][1]) & 0x3f800000u);"},
+}
+
+
+def sweep_b4(card: str, variants: dict = B4_VARIANTS, rounds: int = 2) -> None:
+    """B4's tensor-core body built once per variant (all nvcc's at once),
+    each timed at the 7B's projection shapes at m=1 and m=8 as in
+    `phase_kernels`, the variants in turns `rounds` times in this one
+    process; prints one line per variant. Not part of the smoke run: it is
+    how the constants of csrc/q4_matmul.cu were chosen.
+
+        python -c "import chip_smoke as c; c.sweep_b4(c.card_line())"
+    """
+    src = (kernel_build.CSRC / "q4_matmul.cu").read_text()
+    out_dir = kernel_build.BUILD_DIR / "b4_variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for i, (tag, edits) in enumerate(variants.items()):
+        text = src
+        for old, new in edits.items():
+            if old not in text:
+                raise ValueError(f"variant {tag!r}: {old!r} is not in the source")
+            text = text.replace(old, new)
+        cu, so = out_dir / f"v{i}.cu", out_dir / f"libv{i}.so"
+        cu.write_text(text)
+        cmd = [kernel_build._nvcc(), *kernel_build.NVCC_FLAGS, "-o", str(so), str(cu)]
+        procs[tag] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+    libs = {}
+    for tag, (proc, so) in procs.items():
+        build_log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"variant {tag!r} failed to build:\n{build_log}")
+        log(f"sweep_b4: {tag}: {ptxas_report(build_log).split(' | ')[-1]}")
+        libs[tag] = ctypes.CDLL(str(so))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    times = {tag: {} for tag in [*libs, "fma body"]}
+    errs = {}
+    as_is = kernel_build.load("q4_matmul")
+    _bind(as_is)
+    try:
+        for label, out_dim, in_dim, per_layer in PROJ:
+            wbytes = out_dim * in_dim // 2
+            nbuf = max(2, math.ceil(200e6 / wbytes))
+            ws = [torch.randint(-128, 128, (out_dim, in_dim // 2), generator=gen, device="cuda",
+                                dtype=torch.int32).to(torch.int8) for _ in range(nbuf)]
+            scs = [(torch.rand((out_dim, in_dim // GROUP), generator=gen, device="cuda") + 0.5) * 2e-3
+                   for _ in range(nbuf)]
+            for m in (1, 8):
+                y = torch.randn((m, 1, in_dim), generator=gen, device="cuda").to(torch.bfloat16)
+                want = q4_matmul_plain(y, ws[0], scs[0], "grouped", torch.bfloat16)
+                for _ in range(rounds):
+                    for tag, lib in libs.items():
+                        kernel_build._loaded["q4_matmul"] = lib
+                        got = q4_matmul(y, ws[0], scs[0])
+                        if tag.startswith("diagnostic"):
+                            err = (got.float() - want.float()).abs().max().item()
+                        else:
+                            err = check_close(f"sweep_b4 {tag} {label} m={m}", got, want)
+                        errs[tag] = max(errs.get(tag, 0.0), err)
+                        ms = device_ms(lambda i: q4_matmul(y, ws[i % nbuf], scs[i % nbuf]))
+                        times[tag].setdefault((m, label, per_layer), []).append(ms)
+                    # the FMA body on the same grouped shapes: the design before
+                    # the tensor-core body, through its own entry point
+                    kernel_build._loaded["q4_matmul"] = as_is
+
+                    def fma(i):
+                        out = torch.empty((m, 1, out_dim), dtype=torch.bfloat16, device="cuda")
+                        rc = as_is.q4_matmul_bf16(
+                            y.data_ptr(), ws[i % nbuf].data_ptr(), scs[i % nbuf].data_ptr(), out.data_ptr(),
+                            m, in_dim, out_dim, in_dim // GROUP, 0, torch.cuda.current_stream().cuda_stream)
+                        if rc:
+                            raise RuntimeError(f"fma body launch failed: cudaError {rc}")
+                        return out
+                    err = check_close(f"sweep_b4 fma body {label} m={m}", fma(0), want)
+                    errs["fma body"] = max(errs.get("fma body", 0.0), err)
+                    times["fma body"].setdefault((m, label, per_layer), []).append(device_ms(fma))
+            del ws, scs
+            torch.cuda.empty_cache()
+    finally:
+        kernel_build._loaded["q4_matmul"] = as_is
+    for tag, t in times.items():
+        parts = []
+        for m in (1, 8):
+            rows = [(label, per_layer, v) for (mm, label, per_layer), v in t.items() if mm == m]
+            layer = [sum(per_layer * v[r] for _, per_layer, v in rows) for r in range(rounds)]
+            parts.append(f"m={m}: layer ms {[round(x, 5) for x in layer]} ("
+                         + ", ".join(f"{label} {[round(x, 5) for x in v]}" for label, _, v in rows) + ")")
+        log(f"sweep_b4: {tag}: max_abs_err {errs[tag]:.4g}; " + "; ".join(parts) + f" [{card}]")
 
 
 def post_act(url: str, frame: np.ndarray, task: str) -> dict:
@@ -384,6 +493,7 @@ def phase_slice(card: str) -> dict:
             th.join(timeout=900)
         serve_s = time.perf_counter() - t
         launches = dict(q4_matmul.launches)  # read right after the main path
+        by_body = dict(q4_matmul.launches_by_body)
         decodes = server.batcher.stats["batches"] - batches_before
         bucket_counts = server.batcher.bucket_counts()
     finally:
@@ -396,10 +506,13 @@ def phase_slice(card: str) -> dict:
             raise AssertionError(f"reply {i} is not 7 finite actions: {r}")
     log(f"slice: {N_REQUESTS} concurrent POST /act answered 200 with 7 finite actions each "
         f"in {serve_s:.3f} s over {decodes} decode call(s) (buckets {bucket_counts})")
-    log(f"slice: q4_matmul launches in the served run {launches}; expected "
-        f"{per_decode} per decode call ({steps} steps x {layers} layers x 7) x {decodes}")
+    log(f"slice: q4_matmul launches in the served run {launches}, by body {by_body}; expected "
+        f"{per_decode} per decode call ({steps} steps x {layers} layers x 7) x {decodes}, "
+        f"all through the mma body")
     if launches["grouped"] != per_decode * decodes or decodes < 1:
         raise AssertionError(f"launch count {launches} != {per_decode} x {decodes}")
+    if by_body != {"mma": launches["grouped"], "fma": 0}:
+        raise AssertionError(f"B4 launches by body {by_body}: not all through the mma body")
 
     # the same batch through the kernel tail and through the plain int4 tail
     kern = policy.decode(frames, tasks)
@@ -445,7 +558,7 @@ def phase_slice(card: str) -> dict:
     device_breakdown(policy, frames, tasks, 7, timings[8][2], card)
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"slice: peak torch.cuda.max_memory_allocated while serving = {peak:.2f} GiB [{card}]")
-    return {"launches": launches, "timings": timings, "peak_gib": peak}
+    return {"launches": launches, "by_body": by_body, "timings": timings, "peak_gib": peak}
 
 
 def dummy_batches(bs: int, seed: int = SEED):
@@ -770,7 +883,7 @@ def main() -> int:
                   "padding bias, per launch; launches from the CLI run",
             "on_main_path": True,
         })
-    for mode, (kname, replaces) in KERNELS.items():
+    for mode, (kname, replaces, body) in KERNELS.items():
         at8 = [r for r in rows if r["mode"] == mode and r["m"] == 8]
 
         def layer_sum(key):
@@ -778,7 +891,7 @@ def main() -> int:
 
         kernels.append({
             "name": kname, "route": "cuda", "source": SOURCE, "replaces": replaces,
-            "launches": res["launches"][mode],
+            "body": body, "launches": res["launches"][mode],
             "max_abs_err": max(r["max_abs_err"] for r in rows if r["mode"] == mode),
             "ms": layer_sum("ms"), "plain_ms": layer_sum("plain_ms"),
             "bound_ms": layer_sum("bound_ms"),

@@ -12,21 +12,71 @@
 // out  [m, out]     bf16
 //
 // Modes (both launched through roboticattack_torch/ops/q4_matmul.py):
-//   grouped (B4, _kernel_grouped): the raw s4 integers are contracted in
-//     f32; each group's f32 partial is multiplied by its scale after the
-//     group's contraction.
+//   grouped (B4, _kernel_grouped, roboticattack_tpu/ops/q4_matmul.py:70): the
+//     raw s4 integers are contracted in f32; each group's f32 partial is
+//     multiplied by its scale after the group's contraction.
 //   dense (B5, _kernel_dense): each weight is dequantized (nibble * scale),
 //     rounded to bf16, then contracted with f32 accumulation.
 //
 // What bounds it: at decode batch sizes this is a matrix-vector product that
 // streams the packed weights once: out*in/2 bytes plus out*G*4 bytes of
 // scales (8.4 MB for a 4096x4096 projection, 22.6 MB for 11008x4096), against
-// the card's memory bandwidth (3.35 TB/s on an H100 SXM). The design keeps
-// the traffic at that: weights are read once, with 16-byte loads, unpacked
-// in registers with integer shifts; the activations are staged through
-// shared memory one K tile at a time and shared by the block's warps.
+// the card's memory bandwidth (3.35 TB/s on an H100 SXM). The operations
+// (2*m*out*in) are far below the tensor-core peak.
 //
-// Layout of the work:
+// Two bodies, chosen by the host wrapper from the shape before the launch:
+//
+// 1. q4_matmul_mma_kernel (entry q4_matmul_grouped_mma_bf16): grouped mode
+//    with a group size that is a multiple of 128 channels (the 7B's 128). The
+//    products run on the bf16 tensor cores (mma.sync m16n8k16, f32
+//    accumulation). bf16(y) x s4 is exact in f32, so only the order of the
+//    f32 sums differs from the plain version.
+//    - Operands: a weight row tile is A (M = 16 output channels, K = the
+//      contraction), the activations are B (N = 8 activation rows; rows past
+//      m are zero), C is [16 channels x 8 rows] in f32. A block owns kMTiles
+//      = 2 row tiles (32 channels), so each activation fragment feeds 2 mma's.
+//    - The K permutation: a sum over K does not depend on the order of K, so
+//      one permutation applied to A and B alike changes nothing. In the
+//      fragment layout of m16n8k16 (lane = 4g + t) a register of A holds the
+//      k-pair (2t, 2t+1) or (2t+8, 2t+9) of row g or g+8, and a register of B
+//      the same k-pair of column g. For k-block b (128 channels = 64 packed
+//      bytes a row) lane (g, t) takes bytes [64b + 16t, +16) of rows g and
+//      g+8 and activations y[g, 128b + 32t .. +31]: 32 channels. In mma s
+//      (q = s/2, e = s&1) k = 2t + 8*half + nib is channel
+//      128b + 32t + 8q + 2e + half + 4*nib: word q of each piece holds
+//      channels 8q..8q+7 in its nibbles 0..7, and one lop3 takes the nibble
+//      pair (j, j+4), j = 2e + half, into one A register; a prmt pairs the
+//      activations (j, j+4) alike for B. Each channel of the k-block is
+//      visited once.
+//    - Unpacking in registers: with u the nibble, ((w >> 4j) & 0x000F000F)
+//      ^ 0x43084308 is the bf16 pair 0x4300 | (u ^ 8) = 128 + (u ^ 8); one
+//      bf16x2 subtraction of 136 leaves the signed nibble, exactly.
+//    - Groups: a k-block's 8 mma's run into a zeroed f32 C fragment, which is
+//      scaled and added to the accumulator at the group's last k-block (the
+//      Pallas order: the group's f32 partial, then its scale). An mma mixes
+//      channels from across its whole k-block, so a group is whole k-blocks:
+//      this body takes group sizes of 128 * 2^k channels.
+//    - Streaming the weights: each warp owns a ring of kStages = 2 stages in
+//      shared memory; a stage is 2 k-blocks of the block's 32 rows (128
+//      contiguous bytes a row, 4 KB) plus their scales, copied with cp.async
+//      (L1 bypassed) so that 8 lanes fetch one whole 128-byte line; a 16-byte
+//      shared load then hands each lane its piece (odd rows swap their
+//      halves, so the reads are free of bank conflicts). The next stage is in
+//      flight while a stage is computed: 4 KB a warp, 64 KB an SM at 16
+//      warps, above the ~20 KB that 3.35 TB/s at under a microsecond of
+//      latency asks. Deeper rings measured slower: they take L1 from the
+//      activations, which every block reads.
+//    - Filling the card: grid.x covers the output channels 32 at a time,
+//      grid.y the activation rows 8 at a time; a block splits K among its
+//      warps in units of whole groups (up to 8 warps, as many as keep the grid
+//      at <= 16 warps an SM, so one wave holds it). The warps' f32 partials
+//      are summed in shared memory in a fixed order: the result is
+//      bit-deterministic.
+//
+// 2. q4_matmul_kernel (entry q4_matmul_bf16): dense mode, and grouped mode
+//    with groups of 32 or 64 channels. CUDA-core FMAs, 16-byte weight loads
+//    unpacked with integer shifts, the activations staged through shared
+//    memory one K tile at a time:
 //   - a block is 8 warps; each warp owns 2 output channels; grid.x covers
 //     the output channels in blocks of 16 (the ragged edge is masked);
 //   - grid.y covers the activation rows in chunks of MT (1, 2, 4 or 8);
@@ -42,10 +92,6 @@
 //   - a final xor-shuffle reduction over the warp gives each output.
 // The host wrapper checks: in % 32 == 0, G/32 lanes per group is a power of
 // two <= 32, 16-byte aligned contiguous operands.
-//
-// This first design is simple and correct and runs the FMAs on the CUDA
-// cores. Tensor-core MMA (mma.sync / wgmma), TMA staging and split-K for
-// more blocks in flight are work for later changes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -237,6 +283,273 @@ void launch(const void* y, const void* w, const void* scale, void* out, int m, i
   }
 }
 
+// ---------------------------------------------------------------------------
+// Body 1: grouped mode on the tensor cores (groups of 128 * 2^k channels).
+
+constexpr int kMmaMaxWarps = 8;
+constexpr int kMmaWarpsPerSm = 16;  // the grid's warps are kept within one wave of this
+constexpr int kBlockK = 128;        // channels per k-block: 8 mma's of K = 16
+constexpr int kStages = 2;          // a warp's ring of stages; kStages - 1 in flight
+constexpr int kMTiles = 2;          // 16-channel row tiles a warp (and a block) owns
+constexpr int kRows = 16 * kMTiles; // output channels a block owns
+constexpr int kStageRowBytes = 128; // a stage is 2 k-blocks: 128 packed bytes of each of kRows rows
+constexpr int kStageBytes = kRows * kStageRowBytes + kRows * 2 * 4;  // + the 2 k-blocks' scales of the rows
+constexpr int kMmaSmemPerWarp = kStages * kStageBytes;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (or 4) bytes global -> shared, bypassing registers; zeros when !valid.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// Wait until at most kPending of this thread's groups are still in flight.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Nibbles j and j+4 of the word w (j = kShift / 4) as a bf16x2 pair of
+// signed integers, nibble j in the low half. With u the nibble, the bits
+// (u & 0xF) ^ 0x4308 are the bf16 0x4300 | (u ^ 8) = 128 + (u ^ 8) (one lop3
+// with both masks); subtracting 136 leaves (u ^ 8) - 8, the signed nibble.
+template <int kShift>
+__device__ __forceinline__ uint32_t s4_pair(uint32_t w) {
+  const uint32_t k136 = 0x43084308u;
+  uint32_t v;  // (w >> kShift) & 0x000F000F ^ k136: lut (a & b) ^ c = 0x6a
+  asm("lop3.b32 %0, %1, %2, %3, 0x6a;\n" : "=r"(v) : "r"(w >> kShift), "r"(0x000F000Fu), "r"(k136));
+  const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&k136));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// The B registers of one k-block from the lane's 32 activations of row g
+// (yv): mma s takes word q = s/2 of yv (8 channels) and e = s&1 picks the
+// pairs (2e, 2e+4) for k (2t, 2t+1) and (2e+1, 2e+5) for k (2t+8, 2t+9).
+__device__ __forceinline__ void kblock_b(uint32_t b[8][2], const uint4* yv) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    b[2 * q][0] = __byte_perm(yv[q].x, yv[q].z, 0x5410);
+    b[2 * q][1] = __byte_perm(yv[q].x, yv[q].z, 0x7632);
+    b[2 * q + 1][0] = __byte_perm(yv[q].y, yv[q].w, 0x5410);
+    b[2 * q + 1][1] = __byte_perm(yv[q].y, yv[q].w, 0x7632);
+  }
+}
+
+// One k-block: the 8 mma's over the lane's weight pieces of rows g (wa) and
+// g+8 (wb), into c. mma s takes word q = s/2 of each piece, paired as the
+// activations: its A registers are nibbles (2e, 2e+4) and (2e+1, 2e+5).
+__device__ __forceinline__ void kblock_mma(float c[4], const uint4& wa, const uint4& wb, const uint32_t b[8][2]) {
+  const uint32_t xa[4] = {wa.x, wa.y, wa.z, wa.w};
+  const uint32_t xb[4] = {wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    uint32_t a[4];
+    a[0] = s4_pair<0>(xa[q]);
+    a[1] = s4_pair<0>(xb[q]);
+    a[2] = s4_pair<4>(xa[q]);
+    a[3] = s4_pair<4>(xb[q]);
+    mma_bf16(c, a, b[2 * q][0], b[2 * q][1]);
+    a[0] = s4_pair<8>(xa[q]);
+    a[1] = s4_pair<8>(xb[q]);
+    a[2] = s4_pair<12>(xa[q]);
+    a[3] = s4_pair<12>(xb[q]);
+    mma_bf16(c, a, b[2 * q + 1][0], b[2 * q + 1][1]);
+  }
+}
+
+// The warps of a block split K into units of max(2, group) k-blocks, so a
+// warp's run starts a stage and a group.
+__host__ __device__ __forceinline__ int mma_unit(int kpg_log2) { return kpg_log2 > 0 ? 1 << kpg_log2 : 2; }
+
+// Where 16-byte chunk c (0..7) of row r sits in a stage: odd rows swap the
+// halves, so the 8 lanes of a quarter warp (rows g, g+1; chunks t or 4+t)
+// read 8 distinct 16-byte bank groups.
+__device__ __forceinline__ int chunk_off(int r, int c) {
+  return r * kStageRowBytes + ((c ^ ((r & 1) << 2)) << 4);
+}
+
+__global__ void __launch_bounds__(kMmaMaxWarps * 32, kMmaWarpsPerSm / kMmaMaxWarps)
+q4_matmul_mma_kernel(const __nv_bfloat16* __restrict__ y, const int8_t* __restrict__ w,
+                     const float* __restrict__ scale, __nv_bfloat16* __restrict__ out,
+                     int m, int in_dim, int out_dim, int groups, int kpg_log2) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red[kMmaMaxWarps][4 * kMTiles][32];
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int o0 = blockIdx.x * kRows;
+  const int row0 = blockIdx.y * 8;
+  const int in_half = in_dim >> 1;
+  const int nkb = in_dim / kBlockK;
+  const int kpg_mask = (1 << kpg_log2) - 1;
+
+  // this warp's stages: whole units, so none straddles two warps
+  const int unit = mma_unit(kpg_log2);
+  const int units = (nkb + unit - 1) / unit;
+  const int spu = unit >> 1;  // stages per unit
+  const int u_begin = units * warp / warps;
+  const int st_begin = u_begin * spu;
+  const int n_st = (units * (warp + 1) / warps - u_begin) * spu;
+
+  unsigned char* ring = smem + warp * kMmaSmemPerWarp;
+  const uint32_t ring_u32 = smem_u32(ring);
+
+  // A stage: rows o0..o0+kRows-1, k-blocks 2st, 2st+1. Copy i covers rows
+  // 4i..4i+3 with 8 lanes a row, 128 contiguous bytes each (whole lines):
+  // lane chunk c = lane & 7 is bytes 128st + 16c of its row.
+  const int8_t* wsrc[kRows / 4];
+  uint32_t wdst[kRows / 4];
+  bool wok[kRows / 4];
+#pragma unroll
+  for (int i = 0; i < kRows / 4; ++i) {
+    const int r = (lane >> 3) + 4 * i;
+    wok[i] = o0 + r < out_dim;
+    wsrc[i] = w + static_cast<size_t>(wok[i] ? o0 + r : 0) * in_half + 16 * (lane & 7);
+    wdst[i] = chunk_off(r, lane & 7);
+  }
+  // the scales of the stage's 2 k-blocks: [kRows rows][2] f32; copy i takes
+  // rows 16i..16i+15, lane = 2r + h
+  const float* ssrc[kMTiles];
+  bool sok[kMTiles];
+#pragma unroll
+  for (int i = 0; i < kMTiles; ++i) {
+    const int o = o0 + 16 * i + (lane >> 1);
+    sok[i] = o < out_dim;
+    ssrc[i] = scale + static_cast<size_t>(sok[i] ? o : 0) * groups;
+  }
+  auto issue = [&](int st, int buf) {
+    const uint32_t dst = ring_u32 + buf * kStageBytes;
+    const bool kok = 2 * st + ((lane & 7) >> 2) < nkb;
+#pragma unroll
+    for (int i = 0; i < kRows / 4; ++i) {
+      const bool valid = wok[i] && kok;
+      cp_async16(dst + wdst[i], valid ? wsrc[i] + st * kStageRowBytes : w, valid);
+    }
+    const int kbs = 2 * st + (lane & 1);
+#pragma unroll
+    for (int i = 0; i < kMTiles; ++i) {
+      const bool valid = sok[i] && kbs < nkb;
+      cp_async4(dst + kRows * kStageRowBytes + 4 * (32 * i + lane), valid ? ssrc[i] + (kbs >> kpg_log2) : scale,
+                valid);
+    }
+  };
+
+  const int yrow = row0 + g;
+  const bool vy = yrow < m;
+  const uint4* yp = reinterpret_cast<const uint4*>(y + static_cast<size_t>(vy ? yrow : 0) * in_dim + 32 * t);
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+
+#pragma unroll
+  for (int j = 0; j < kStages - 1; ++j) {
+    if (j < n_st) issue(st_begin + j, j);
+    cp_async_commit();
+  }
+
+  float acc[kMTiles][4] = {};
+  float part[kMTiles][4] = {};
+  for (int j = 0; j < n_st; ++j) {
+    if (j + kStages - 1 < n_st) issue(st_begin + j + kStages - 1, (j + kStages - 1) % kStages);
+    cp_async_commit();
+    const int st = st_begin + j;
+    uint4 yv[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        yv[h][q] = (vy && 2 * st + h < nkb) ? __ldg(yp + (2 * st + h) * (kBlockK / 8) + q) : zero;
+    cp_async_wait<kStages - 1>();
+    __syncwarp();
+    const unsigned char* stage = ring + (j % kStages) * kStageBytes;
+    const float* sc = reinterpret_cast<const float*>(stage + kRows * kStageRowBytes);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kb = 2 * st + h;
+      if (h == 0 || kb < nkb) {  // a stage's second k-block is past the end when nkb is odd
+        uint32_t b[8][2];
+        kblock_b(b, yv[h]);
+#pragma unroll
+        for (int mt = 0; mt < kMTiles; ++mt) {
+          const int r = 16 * mt + g;
+          const uint4 wa = *reinterpret_cast<const uint4*>(stage + chunk_off(r, 4 * h + t));
+          const uint4 wb = *reinterpret_cast<const uint4*>(stage + chunk_off(r + 8, 4 * h + t));
+          kblock_mma(part[mt], wa, wb, b);
+          if ((kb & kpg_mask) == kpg_mask) {  // the group's last k-block
+            const float sa = sc[2 * r + h], sb = sc[2 * (r + 8) + h];
+            acc[mt][0] = fmaf(part[mt][0], sa, acc[mt][0]);
+            acc[mt][1] = fmaf(part[mt][1], sa, acc[mt][1]);
+            acc[mt][2] = fmaf(part[mt][2], sb, acc[mt][2]);
+            acc[mt][3] = fmaf(part[mt][3], sb, acc[mt][3]);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) part[mt][i] = 0.f;
+          }
+        }
+      }
+    }
+    __syncwarp();  // the stage's readers are done before it is refilled
+  }
+  cp_async_wait<0>();
+
+  // the warps' partials, summed in warp order
+#pragma unroll
+  for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) red[warp][4 * mt + r][lane] = acc[mt][r];
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int r = 0; r < 4 * kMTiles; ++r) {
+      float v = red[0][r][lane];
+      for (int k = 1; k < warps; ++k) v += red[k][r][lane];
+      // c0, c1: channel o0+16mt+g, rows 2t, 2t+1; c2, c3: channel o0+16mt+g+8
+      const int o = o0 + 16 * (r >> 2) + g + ((r & 2) ? 8 : 0);
+      const int row = row0 + 2 * t + (r & 1);
+      if (o < out_dim && row < m) out[static_cast<size_t>(row) * out_dim + o] = __float2bfloat16_rn(v);
+    }
+  }
+}
+
+// The SM count of the current device, and the mma kernel's dynamic
+// shared-memory limit raised, once per device, so that later launches (e.g.
+// inside a CUDA graph capture) make no such call.
+cudaError_t mma_setup(int* sms) {
+  constexpr int kMaxDevices = 64;
+  static int sm_count[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && sm_count[dev] > 0) {
+    *sms = sm_count[dev];
+    return cudaSuccess;
+  }
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(q4_matmul_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kMmaMaxWarps * kMmaSmemPerWarp);
+  if (err == cudaSuccess && dev < kMaxDevices) sm_count[dev] = *sms;
+  return err;
+}
+
 }  // namespace
 
 // Launch on `stream` (a cudaStream_t); returns cudaGetLastError() after the
@@ -254,6 +567,27 @@ extern "C" int q4_matmul_bf16(const void* y, const void* w, const void* scale, v
   } else {
     launch<8>(y, w, scale, out, m, in_dim, out_dim, groups, d, s);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Grouped mode on the tensor cores: group size in_dim / groups must be
+// 128 * 2^k channels (checked by the caller). Launch on `stream`; returns
+// cudaGetLastError() after the launch (0 = launched).
+extern "C" int q4_matmul_grouped_mma_bf16(const void* y, const void* w, const void* scale, void* out, int m,
+                                          int in_dim, int out_dim, int groups, void* stream) {
+  int sms = 0;
+  const cudaError_t err = mma_setup(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int kpg_log2 = 0;
+  while ((kBlockK << kpg_log2) < in_dim / groups) ++kpg_log2;
+  const dim3 grid((out_dim + kRows - 1) / kRows, (m + 7) / 8);
+  const long tiles = static_cast<long>(grid.x) * grid.y;
+  const int units = (in_dim / kBlockK + mma_unit(kpg_log2) - 1) / mma_unit(kpg_log2);
+  int warps = kMmaMaxWarps;
+  while (warps > 1 && (warps > units || tiles * warps > static_cast<long>(kMmaWarpsPerSm) * sms)) warps >>= 1;
+  q4_matmul_mma_kernel<<<grid, warps * 32, warps * kMmaSmemPerWarp, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(y), static_cast<const int8_t*>(w), static_cast<const float*>(scale),
+      static_cast<__nv_bfloat16*>(out), m, in_dim, out_dim, groups, kpg_log2);
   return static_cast<int>(cudaGetLastError());
 }
 

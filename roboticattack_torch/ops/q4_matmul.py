@@ -11,9 +11,13 @@ What bounds it on the card: memory bytes. At decode batch sizes (m = B*S <=
 16 rows) every call streams the packed weights once, out*in/2 bytes, plus the
 f32 scales, out*G*4 bytes, against the card's bandwidth (3.35 TB/s on an
 H100 SXM); the operations (2*m*out*in) are far below the tensor-core peak.
-This first design is simple and correct: CUDA-core FMAs, 16-byte weight
-loads, activations staged in shared memory per K tile. wgmma, TMA and
-split-K are work for later changes.
+
+Two kernel bodies, chosen from the shape before the launch (`body_for`):
+"mma" for grouped mode with a group size that is a multiple of 128 channels
+(the 7B's decode tail): bf16 tensor cores on nibbles unpacked in registers,
+the weights streamed through a shared-memory ring with cp.async, K split
+among a block's warps. "fma" for dense mode and for groups of 32 or 64
+channels: CUDA-core FMAs, activations staged in shared memory per K tile.
 
 Layout contract (the JAX package's models/quant.py): w [out, in/2] int8 with
 channel 2j in the low nibble and 2j+1 in the high nibble; scale [out, G] f32
@@ -31,6 +35,7 @@ import ctypes
 import torch
 
 MODES = ("grouped", "dense")
+BODIES = ("mma", "fma")
 
 
 def _unpack_nibbles(w: torch.Tensor):
@@ -97,22 +102,31 @@ def q4_matmul_plain(
     return acc.to(y.dtype).reshape(b, s, out_dim)
 
 
-def _bind(lib: ctypes.CDLL):
-    fn = lib.q4_matmul_bf16
-    if fn.argtypes is None:
+def body_for(mode: str, in_dim: int, groups: int) -> str:
+    """The kernel body a CUDA launch of this shape takes: "mma" (the tensor
+    cores) for grouped mode whose group size is a multiple of 128 channels,
+    "fma" (the CUDA cores) for dense mode and for groups of 32 or 64."""
+    return "mma" if mode == "grouped" and (in_dim // groups) % 128 == 0 else "fma"
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    if lib.q4_matmul_bf16.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
-        fn.restype = i32
+        lib.q4_matmul_bf16.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+        lib.q4_matmul_bf16.restype = i32
+        lib.q4_matmul_grouped_mma_bf16.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+        lib.q4_matmul_grouped_mma_bf16.restype = i32
         lib.q4_matmul_error_string.argtypes = [i32]
         lib.q4_matmul_error_string.restype = ctypes.c_char_p
-    return fn
+    return lib
 
 
 def q4_matmul(y: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, mode: str = "grouped") -> torch.Tensor:
     """[B, S, in] @ dequant(w[out, in/2], scale[out, G])^T -> [B, S, out].
 
     CUDA tensors: launches the hand-written kernel (B4 grouped / B5 dense)
-    on the current stream and counts the launch in `q4_matmul.launches`.
+    on the current stream, with the body `body_for` names, and counts the
+    launch in `q4_matmul.launches` (by mode) and `q4_matmul.launches_by_body`.
     CPU tensors: the plain version in float32 (no launch, no count)."""
     _check_shapes(y, w, scale, mode)
     if y.device.type == "cpu":
@@ -144,25 +158,33 @@ def q4_matmul(y: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, mode: str =
             f"of 32 * 2^k channels (k <= 5); got in={in_dim}, group size "
             f"{in_dim // g}"
         )
+    body = body_for(mode, in_dim, g)
     out = torch.empty((b, s, out_dim), dtype=y.dtype, device=y.device)
-    fn = _bind(_load())
+    lib = _bind(_load())
+    args = (y.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), b * s, in_dim, out_dim, g)
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
-        rc = fn(y.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                b * s, in_dim, out_dim, g, int(mode == "dense"), stream)
+        if body == "mma":
+            rc = lib.q4_matmul_grouped_mma_bf16(*args, stream)
+        else:
+            rc = lib.q4_matmul_bf16(*args, int(mode == "dense"), stream)
     if rc != 0:
-        msg = _load().q4_matmul_error_string(rc).decode()
-        raise RuntimeError(f"q4_matmul kernel launch failed: {msg} (cudaError {rc})")
+        msg = lib.q4_matmul_error_string(rc).decode()
+        raise RuntimeError(f"q4_matmul kernel launch failed ({body} body): {msg} (cudaError {rc})")
     q4_matmul.launches[mode] += 1
+    q4_matmul.launches_by_body[body] += 1
     return out
 
 
 q4_matmul.launches = {mode: 0 for mode in MODES}
+q4_matmul.launches_by_body = {body: 0 for body in BODIES}
 
 
 def reset_launches() -> None:
     for mode in MODES:
         q4_matmul.launches[mode] = 0
+    for body in BODIES:
+        q4_matmul.launches_by_body[body] = 0
 
 
 def _load() -> ctypes.CDLL:

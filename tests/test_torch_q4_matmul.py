@@ -14,6 +14,8 @@ import torch
 from roboticattack_tpu.ops.q4_matmul import q4_matmul as jax_q4_matmul
 from roboticattack_tpu.ops.q4_matmul import q4_reference
 from roboticattack_torch.ops.q4_matmul import (
+    _unpack_nibbles,
+    body_for,
     q4_matmul,
     q4_matmul_plain,
     reset_launches,
@@ -86,6 +88,7 @@ def test_wrapper_on_cpu_is_the_plain_version_and_counts_nothing():
         torch.testing.assert_close(got, q4_matmul_plain(y, w, scale, mode, torch.float32),
                                    rtol=0, atol=0)
     assert q4_matmul.launches == {"grouped": 0, "dense": 0}
+    assert q4_matmul.launches_by_body == {"mma": 0, "fma": 0}
 
 
 def test_wrapper_rejects_bad_shapes_and_modes():
@@ -96,3 +99,129 @@ def test_wrapper_rejects_bad_shapes_and_modes():
         q4_matmul(y, w, scale[:, :3])
     with pytest.raises(ValueError, match="mode"):
         q4_matmul(y, w, scale, mode="fused")
+
+
+@pytest.mark.parametrize("mode,in_dim,groups,body", [
+    ("grouped", 4096, 32, "mma"),    # the 7B: groups of 128
+    ("grouped", 11008, 86, "mma"),
+    ("grouped", 1024, 4, "mma"),     # groups of 256
+    ("grouped", 2048, 2, "mma"),     # groups of 1024
+    ("grouped", 512, 8, "fma"),      # groups of 64
+    ("grouped", 512, 16, "fma"),     # groups of 32
+    ("dense", 4096, 32, "fma"),
+])
+def test_body_for_routes_by_shape(mode, in_dim, groups, body):
+    """Grouped mode with whole 128-channel k-blocks per group takes the
+    tensor-core body; dense mode and groups of 32/64 take the FMA body."""
+    assert body_for(mode, in_dim, groups) == body
+
+
+def _fragment_map(b):
+    """The tensor-core body's index map for k-block b, as the header of
+    csrc/q4_matmul.cu states it. mma.sync m16n8k16 gives lane (g, t) the A
+    registers (row g or g+8; logical k 2t, 2t+1 | 2t+8, 2t+9) and the B
+    registers (column g; the same k). Lane (g, t) holds bytes 64b + 16t ..
+    +15 of rows g and g+8 and activation channels 128b + 32t .. +31; in mma
+    s (q = s // 2, e = s % 2) logical k = 2t + 8 * half + nib takes channel
+    128b + 32t + 8q + 2e + half + 4 * nib: the A register is one lop3 of word
+    q (nibbles 2e + half and 2e + half + 4), the B register a prmt of the
+    activations. Returns, for each s and logical k (0..15), the packed byte
+    and nibble A takes and the activation channel B takes: [8, 16] each."""
+    k = torch.arange(16)
+    t, half, nib = (k % 8) // 2, k // 8, k % 2
+    s = torch.arange(8)[:, None]
+    q, e = s // 2, s % 2
+    a_byte = 64 * b + 16 * t + 4 * q + e + 2 * nib
+    a_nib = half.expand(8, 16)
+    b_chan = 128 * b + 32 * t + 8 * q + 2 * e + half + 4 * nib
+    return a_byte, a_nib, b_chan
+
+
+@pytest.mark.parametrize("b", [0, 3])
+def test_fragment_map_visits_each_channel_once(b):
+    """(a) Over one k-block, A and B take each of its 128 channels exactly
+    once, and in every mma slot both take the same channel."""
+    a_byte, a_nib, b_chan = _fragment_map(b)
+    a_chan = 2 * a_byte + a_nib
+    assert torch.equal(a_chan, b_chan)
+    want = torch.arange(128 * b, 128 * (b + 1))
+    assert torch.equal(a_chan.flatten().sort().values, want)
+    assert torch.equal(b_chan.flatten().sort().values, want)
+    # lane t's 8 mma's take both nibbles of its 16 contiguous bytes of each
+    # row and its 32 contiguous activations: one 16-byte piece of each row
+    # and 4 16-byte pieces of activations a k-block
+    for t in range(4):
+        ks = [2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9]
+        pieces = torch.arange(64 * b + 16 * t, 64 * b + 16 * t + 16)
+        assert torch.equal(a_byte[:, ks].flatten().sort().values, pieces.repeat_interleave(2))
+        assert torch.equal(b_chan[:, ks].flatten().sort().values,
+                           torch.arange(128 * b + 32 * t, 128 * b + 32 * t + 32))
+
+
+def _mma_order_matmul(y, w, scale, flush_every):
+    """The tensor-core body's arithmetic in plain torch: per k-block, 8 f32
+    mma products through the fragment map, into a partial that is scaled by
+    one group scale every `flush_every` k-blocks (the group of its first
+    k-block) and added to the accumulator. y [m, in] f32, result [m, out]."""
+    lo, hi = _unpack_nibbles(w)
+    out_dim, in_half = w.shape
+    gs = 2 * in_half // scale.shape[1]
+    acc = torch.zeros(y.shape[0], out_dim)
+    part = torch.zeros_like(acc)
+    for b in range(2 * in_half // 128):
+        a_byte, a_nib, b_chan = _fragment_map(b)
+        for s in range(8):
+            a = torch.where(a_nib[s] == 0, lo[:, a_byte[s]], hi[:, a_byte[s]]).float()  # [out, 16]
+            part += y[:, b_chan[s]] @ a.T
+        if (b + 1) % flush_every == 0:
+            grp = (b + 1 - flush_every) * 128 // gs
+            acc += part * scale[:, grp]
+            part.zero_()
+    return acc
+
+
+@pytest.mark.parametrize("out_dim,in_dim,gs,m", [(256, 512, 128, 8), (384, 1024, 256, 3)])
+def test_fragment_order_matches_plain(out_dim, in_dim, gs, m):
+    """(b) Summing the products in the kernel's order, with per-k-block f32
+    partials scaled per group, is the plain version's function: both sum
+    exact products in f32, in different orders (1e-5 relative)."""
+    y, w, scale = _mk(out_dim, in_dim, gs, m, 1, seed=7)
+    yt = torch.from_numpy(y).to(torch.bfloat16).float()[:, 0]
+    wt, st = torch.from_numpy(w), torch.from_numpy(scale)
+    got = _mma_order_matmul(yt, wt, st, flush_every=gs // 128)
+    want = q4_matmul_plain(yt[:, None], wt, st, "grouped", torch.float32)[:, 0]
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+
+
+def test_groups_of_64_cannot_flush_at_a_kblock_boundary():
+    """Why groups of 32/64 take the FMA body: every mma of a k-block mixes
+    channels of two 64-channel groups, so no partial belongs to one group,
+    and scaling a k-block's partial by one scale is a different function."""
+    for b in range(2):
+        _, _, b_chan = _fragment_map(b)
+        assert all(len(set((b_chan[s] // 64).tolist())) == 2 for s in range(8))
+        assert all(len(set((b_chan[s] // 128).tolist())) == 1 for s in range(8))
+    y, w, scale = _mk(64, 512, 64, 4, 1, seed=8)
+    yt = torch.from_numpy(y).to(torch.bfloat16).float()[:, 0]
+    wt, st = torch.from_numpy(w), torch.from_numpy(scale)
+    want = q4_matmul_plain(yt[:, None], wt, st, "grouped", torch.float32)[:, 0]
+    # one scale for each pair of 64-channel groups, flushed per k-block
+    got = _mma_order_matmul(yt, wt, st[:, 0::2].contiguous(), flush_every=1)
+    err = (got - want).abs().max().item()
+    assert err > 1e-2 * want.abs().max().item(), err
+
+
+def test_offset_binary_unpack_is_exact():
+    """The tensor-core body's unpacking, on 32-bit words of packed bytes:
+    ((w >> 4j) & 0x000F000F) ^ 0x43084308 is the bf16 pair 128 + (u ^ 8) of
+    nibbles j and j+4; less 136 each is the signed nibble, exactly, for all
+    256 byte values."""
+    packed = torch.arange(-128, 128, dtype=torch.int32).to(torch.int8)
+    words = packed.view(torch.int32).to(torch.int64) & 0xFFFFFFFF  # 64 words, little-endian
+    lo, hi = _unpack_nibbles(packed[None])
+    nibbles = torch.stack([lo[0], hi[0]], dim=-1).reshape(64, 8).float()  # nibble i of each word
+    k136 = torch.tensor(136.0, dtype=torch.bfloat16)
+    for j in range(4):
+        v = ((words >> (4 * j)) & 0x000F000F) ^ 0x43084308
+        pair = v.to(torch.int32).view(torch.int16).view(torch.bfloat16).reshape(64, 2) - k136
+        assert torch.equal(pair.float(), nibbles[:, [j, j + 4]])

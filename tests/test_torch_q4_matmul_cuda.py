@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from roboticattack_torch.ops.q4_matmul import q4_matmul, q4_matmul_plain
+from roboticattack_torch.ops.q4_matmul import body_for, q4_matmul, q4_matmul_plain
 
 
 @pytest.fixture
@@ -43,6 +43,10 @@ def _mk(out_dim, in_dim, gs, m, device, seed=5):
     (384, 768, 128, 13),   # ragged output edge, m > 8 (two row chunks)
     (200, 512, 64, 3),     # 2 lanes per group, out not a multiple of 16
     (64, 2048, 1024, 2),   # one group spans the whole warp
+    (200, 512, 128, 3),    # tensor-core body: ragged output edge, m < 8
+    (384, 1024, 256, 5),   # tensor-core body: groups of 256 (2 k-blocks)
+    (96, 384, 128, 4),     # tensor-core body: an odd count of 128-channel k-blocks
+    (4096, 4096, 128, 2),
 ])
 def test_cuda_kernel_matches_plain(cuda, mode, out_dim, in_dim, gs, m):
     """Both sides accumulate in f32 in different orders and round the output
@@ -76,3 +80,32 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="different devices"):
         q4_matmul(y, w.cpu(), scale)
     assert q4_matmul.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,gs,body", [
+    ("grouped", 128, "mma"), ("grouped", 256, "mma"), ("grouped", 64, "fma"),
+    ("dense", 128, "fma"), ("dense", 64, "fma"),
+])
+def test_cuda_dispatch_counts_the_body_that_ran(cuda, mode, gs, body):
+    """Grouped mode with groups of 128 * 2^k launches the tensor-core body;
+    groups of 64 and dense mode the FMA body."""
+    y, w, scale = _mk(256, 1024, gs, 4, cuda)
+    assert body_for(mode, 1024, 1024 // gs) == body
+    before = dict(q4_matmul.launches_by_body)
+    q4_matmul(y, w, scale, mode=mode)
+    torch.cuda.synchronize()
+    want = dict(before, **{body: before[body] + 1})
+    assert q4_matmul.launches_by_body == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dim,in_dim,m", [(4096, 11008, 8), (11008, 4096, 1)])
+def test_cuda_mma_body_is_bit_deterministic(cuda, out_dim, in_dim, m):
+    """The warps' partials are summed in a fixed order: two calls give the
+    same bits."""
+    y, w, scale = _mk(out_dim, in_dim, 128, m, cuda)
+    first = q4_matmul(y, w, scale)
+    second = q4_matmul(y, w, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
