@@ -9,7 +9,9 @@ Phases, each of which fails the run (non-zero exit, no result line) on error:
                (one nvcc per source, all started together);
   3. kernels — each kernel against its plain PyTorch version on the card at
                the OpenVLA-7B projection shapes, with times, the byte bound
-               and a library yardstick;
+               and a library yardstick (both modes also with groups of 32
+               and 64 channels, errors only: grouped mode there runs the
+               FMA body);
   4. slice   — the int4 serving path end to end: random seeded OpenVLA-7B
                weights -> int4 -> VLAPolicy -> DynamicBatcher ->
                ActionServer on 127.0.0.1, answering concurrent HTTP requests;
@@ -35,7 +37,6 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import base64
-import ctypes
 import dataclasses
 import gc
 import json
@@ -65,7 +66,6 @@ from roboticattack_torch.ops import flash_attention as fa
 from roboticattack_torch.ops import kernel_build
 from roboticattack_torch.ops.attention import causal_bias, padding_bias
 from roboticattack_torch.ops.q4_matmul import (
-    _bind,
     _unpack_nibbles,
     q4_matmul,
     q4_matmul_plain,
@@ -83,7 +83,7 @@ PROJ = [("q/k/v/o_w", 4096, 4096, 4), ("gate/up_w", 11008, 4096, 2), ("down_w", 
 # mode -> (name, the TPU kernel it replaces, the body the 7B's shapes take)
 KERNELS = {
     "grouped": ("q4_matmul_grouped_mma", "roboticattack_tpu/ops/q4_matmul.py:70", "mma"),
-    "dense": ("q4_matmul_dense", "roboticattack_tpu/ops/q4_matmul.py:96", "fma"),
+    "dense": ("q4_matmul_dense_mma", "roboticattack_tpu/ops/q4_matmul.py:96", "mma"),
 }
 SOURCE = "roboticattack_torch/csrc/q4_matmul.cu"
 FLASH_KERNELS = {
@@ -189,10 +189,26 @@ def dequant_bf16(w, scale):
     return (w8 * scale[..., None]).to(torch.bfloat16).reshape(out_dim, 2 * in_half)
 
 
+def launch_body(label: str, want: str, fn):
+    """fn() through the q4_matmul wrapper; raises unless it launched the body
+    `want` ("mma" or "fma")."""
+    before = dict(q4_matmul.launches_by_body)
+    out = fn()
+    torch.cuda.synchronize()
+    body = [b for b, n in q4_matmul.launches_by_body.items() if n != before[b]]
+    if body != [want]:
+        raise AssertionError(f"{label} ran the body {body}, not {want!r}")
+    return out
+
+
 def phase_kernels(bw: float):
     """Every kernel against its plain version at the 7B projection shapes;
     timing cycles through enough distinct weight copies to exceed the 50 MB
-    L2, as the decode tail (32 layers of weights) finds them cold."""
+    L2, as the decode tail (32 layers of weights) finds them cold. Then both
+    modes at 4096x4096, m=8, with groups of 32 and 64 channels, errors only:
+    dense mode on the mma body (4 and 2 scales a row a k-block), grouped mode
+    on the FMA body. Returns the timed rows and, by mode, the largest error
+    of those checks."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
     for label, out_dim, in_dim, per_layer in PROJ:
@@ -212,14 +228,10 @@ def phase_kernels(bw: float):
             bound_ms = max(byte_ms, op_ms)
             library_ms = device_ms(lambda i: torch.matmul(y, dense_w[i % len(dense_w)].T))
             for mode in ("grouped", "dense"):
-                before = dict(q4_matmul.launches_by_body)
-                got = q4_matmul(y, ws[0], scs[0], mode=mode)
+                body = KERNELS[mode][2]
+                got = launch_body(f"{mode} {label} m={m}", body,
+                                  lambda: q4_matmul(y, ws[0], scs[0], mode=mode))
                 want = q4_matmul_plain(y, ws[0], scs[0], mode, torch.bfloat16)
-                torch.cuda.synchronize()
-                body = [b for b, n in q4_matmul.launches_by_body.items() if n != before[b]]
-                if body != [KERNELS[mode][2]]:
-                    raise AssertionError(f"{mode} {label} m={m} ran the body {body}, "
-                                         f"not {KERNELS[mode][2]!r}")
                 err = (got.float() - want.float()).abs().max().item()
                 ref = want.float().abs().max().item()
                 # both sum in f32 in different orders and round to bf16: at
@@ -237,14 +249,14 @@ def phase_kernels(bw: float):
                 plain_ms = device_ms(
                     lambda i: q4_matmul_plain(y, ws[i % nbuf], scs[i % nbuf], mode, torch.bfloat16),
                     calls=4, replays=3)
-                row = dict(mode=mode, body=body[0], shape=label, out=out_dim, inp=in_dim, m=m,
+                row = dict(mode=mode, body=body, shape=label, out=out_dim, inp=in_dim, m=m,
                            per_layer=per_layer, max_abs_err=err, tol=tol, ms=ms, host_ms=host_ms,
                            plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                            byte_ms=byte_ms, op_ms=op_ms,
                            bound_by="bytes" if byte_ms >= op_ms else "operations",
                            gbps=nbytes / (ms * 1e-3) / 1e9)
                 rows.append(row)
-                log(f"kernel {KERNELS[mode][0]} ({body[0]} body) {label} [{out_dim}x{in_dim}] m={m}: "
+                log(f"kernel {KERNELS[mode][0]} ({body} body) {label} [{out_dim}x{in_dim}] m={m}: "
                     f"max_abs_err={err:.3g} (tol {tol:.3g}) kernel_ms={ms:.5f} "
                     f"eager_back_to_back_ms={host_ms:.5f} "
                     f"plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
@@ -253,108 +265,23 @@ def phase_kernels(bw: float):
                     f"achieved={row['gbps']:.0f} GB/s")
         del ws, scs, dense_w
         torch.cuda.empty_cache()
-    return rows
-
-
-# Variants of B4's tensor-core body for `sweep_b4`: text replacements in
-# csrc/q4_matmul.cu. "as is" is the source unchanged. A "diagnostic" variant
-# computes something else (its error is printed, not checked): "no mma"
-# keeps the loads and drops the unpacking and the products.
-B4_VARIANTS = {
-    "as is": {},
-    "3 stages": {"kStages = 2;": "kStages = 3;"},
-    "1 row tile a warp": {"kMTiles = 2;": "kMTiles = 1;"},
-    "L2 prefetch 256B": {"cp.async.cg.shared.global [%0]": "cp.async.cg.shared.global.L2::256B [%0]"},
-    "diagnostic: no mma": {
-        "kblock_mma(part[mt], wa, wb, b);":
-        "part[mt][0] += __uint_as_float((wa.x ^ wa.w ^ wb.x ^ wb.w ^ b[0][0] ^ b[7][1]) & 0x3f800000u);"},
-}
-
-
-def sweep_b4(card: str, variants: dict = B4_VARIANTS, rounds: int = 2) -> None:
-    """B4's tensor-core body built once per variant (all nvcc's at once),
-    each timed at the 7B's projection shapes at m=1 and m=8 as in
-    `phase_kernels`, the variants in turns `rounds` times in this one
-    process; prints one line per variant. Not part of the smoke run: it is
-    how the constants of csrc/q4_matmul.cu were chosen.
-
-        python -c "import chip_smoke as c; c.sweep_b4(c.card_line())"
-    """
-    src = (kernel_build.CSRC / "q4_matmul.cu").read_text()
-    out_dir = kernel_build.BUILD_DIR / "b4_variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for i, (tag, edits) in enumerate(variants.items()):
-        text = src
-        for old, new in edits.items():
-            if old not in text:
-                raise ValueError(f"variant {tag!r}: {old!r} is not in the source")
-            text = text.replace(old, new)
-        cu, so = out_dir / f"v{i}.cu", out_dir / f"libv{i}.so"
-        cu.write_text(text)
-        cmd = [kernel_build._nvcc(), *kernel_build.NVCC_FLAGS, "-o", str(so), str(cu)]
-        procs[tag] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
-    libs = {}
-    for tag, (proc, so) in procs.items():
-        build_log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"variant {tag!r} failed to build:\n{build_log}")
-        log(f"sweep_b4: {tag}: {ptxas_report(build_log).split(' | ')[-1]}")
-        libs[tag] = ctypes.CDLL(str(so))
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    times = {tag: {} for tag in [*libs, "fma body"]}
-    errs = {}
-    as_is = kernel_build.load("q4_matmul")
-    _bind(as_is)
-    try:
-        for label, out_dim, in_dim, per_layer in PROJ:
-            wbytes = out_dim * in_dim // 2
-            nbuf = max(2, math.ceil(200e6 / wbytes))
-            ws = [torch.randint(-128, 128, (out_dim, in_dim // 2), generator=gen, device="cuda",
-                                dtype=torch.int32).to(torch.int8) for _ in range(nbuf)]
-            scs = [(torch.rand((out_dim, in_dim // GROUP), generator=gen, device="cuda") + 0.5) * 2e-3
-                   for _ in range(nbuf)]
-            for m in (1, 8):
-                y = torch.randn((m, 1, in_dim), generator=gen, device="cuda").to(torch.bfloat16)
-                want = q4_matmul_plain(y, ws[0], scs[0], "grouped", torch.bfloat16)
-                for _ in range(rounds):
-                    for tag, lib in libs.items():
-                        kernel_build._loaded["q4_matmul"] = lib
-                        got = q4_matmul(y, ws[0], scs[0])
-                        if tag.startswith("diagnostic"):
-                            err = (got.float() - want.float()).abs().max().item()
-                        else:
-                            err = check_close(f"sweep_b4 {tag} {label} m={m}", got, want)
-                        errs[tag] = max(errs.get(tag, 0.0), err)
-                        ms = device_ms(lambda i: q4_matmul(y, ws[i % nbuf], scs[i % nbuf]))
-                        times[tag].setdefault((m, label, per_layer), []).append(ms)
-                    # the FMA body on the same grouped shapes: the design before
-                    # the tensor-core body, through its own entry point
-                    kernel_build._loaded["q4_matmul"] = as_is
-
-                    def fma(i):
-                        out = torch.empty((m, 1, out_dim), dtype=torch.bfloat16, device="cuda")
-                        rc = as_is.q4_matmul_bf16(
-                            y.data_ptr(), ws[i % nbuf].data_ptr(), scs[i % nbuf].data_ptr(), out.data_ptr(),
-                            m, in_dim, out_dim, in_dim // GROUP, 0, torch.cuda.current_stream().cuda_stream)
-                        if rc:
-                            raise RuntimeError(f"fma body launch failed: cudaError {rc}")
-                        return out
-                    err = check_close(f"sweep_b4 fma body {label} m={m}", fma(0), want)
-                    errs["fma body"] = max(errs.get("fma body", 0.0), err)
-                    times["fma body"].setdefault((m, label, per_layer), []).append(device_ms(fma))
-            del ws, scs
-            torch.cuda.empty_cache()
-    finally:
-        kernel_build._loaded["q4_matmul"] = as_is
-    for tag, t in times.items():
-        parts = []
-        for m in (1, 8):
-            rows = [(label, per_layer, v) for (mm, label, per_layer), v in t.items() if mm == m]
-            layer = [sum(per_layer * v[r] for _, per_layer, v in rows) for r in range(rounds)]
-            parts.append(f"m={m}: layer ms {[round(x, 5) for x in layer]} ("
-                         + ", ".join(f"{label} {[round(x, 5) for x in v]}" for label, _, v in rows) + ")")
-        log(f"sweep_b4: {tag}: max_abs_err {errs[tag]:.4g}; " + "; ".join(parts) + f" [{card}]")
+    # groups of 32 and 64: dense mode on the mma body, grouped mode on the
+    # FMA body (a grouped partial must belong to one group)
+    group_err = {mode: 0.0 for mode in KERNELS}
+    for gs in (32, 64):
+        w = torch.randint(-128, 128, (4096, 2048), generator=gen, device="cuda",
+                          dtype=torch.int32).to(torch.int8)
+        sc = (torch.rand((4096, 4096 // gs), generator=gen, device="cuda") + 0.5) * 2e-3
+        y = torch.randn((8, 1, 4096), generator=gen, device="cuda").to(torch.bfloat16)
+        for mode in KERNELS:
+            body = "fma" if mode == "grouped" else KERNELS[mode][2]
+            label = f"{mode} [4096x4096] m=8, groups of {gs}"
+            got = launch_body(label, body, lambda: q4_matmul(y, w, sc, mode=mode))
+            err = check_close(label, got, q4_matmul_plain(y, w, sc, mode, torch.bfloat16))
+            group_err[mode] = max(group_err[mode], err)
+            log(f"kernel {KERNELS[mode][0] if body == 'mma' else 'q4_matmul_grouped_fma'} ({body} body) "
+                f"{label}: max_abs_err={err:.3g} (tol 2^-7 x max|plain|)")
+    return rows, group_err
 
 
 def post_act(url: str, frame: np.ndarray, task: str) -> dict:
@@ -863,7 +790,7 @@ def main() -> int:
         log(f"build: {lib} in {r['seconds']:.1f} s; {ptxas_report(r['log'])}")
     log(f"build: all kernels ready in {time.perf_counter() - t:.1f} s")
 
-    rows = phase_kernels(bw)
+    rows, group_err = phase_kernels(bw)
     res = phase_slice(card)
     gc.collect()  # the int4 policy of the serving phase
     torch.cuda.empty_cache()
@@ -892,13 +819,16 @@ def main() -> int:
         kernels.append({
             "name": kname, "route": "cuda", "source": SOURCE, "replaces": replaces,
             "body": body, "launches": res["launches"][mode],
-            "max_abs_err": max(r["max_abs_err"] for r in rows if r["mode"] == mode),
+            "max_abs_err": max([r["max_abs_err"] for r in rows if r["mode"] == mode]
+                               + [group_err[mode]]),
             "ms": layer_sum("ms"), "plain_ms": layer_sum("plain_ms"),
             "bound_ms": layer_sum("bound_ms"),
             "bound_by": "bytes" if layer_sum("byte_ms") >= layer_sum("op_ms") else "operations",
             "library_ms": layer_sum("library_ms"),
             "at": "one decoder layer's 7 projections at m=8 (4x 4096x4096, "
                   "2x 11008x4096, 1x 4096x11008), summed per-launch times",
+            "max_abs_err_over": "the 7B shapes at m=1 and 8, and 4096x4096 at m=8 with groups of "
+                                f"32 and 64 ({'on the fma body' if mode == 'grouped' else 'on the mma body'})",
             "on_main_path": mode == "grouped",
         })
     log(f"total {time.perf_counter() - t_all:.1f} s")

@@ -111,7 +111,7 @@ def check_ported(args) -> None:
     """Raise for every option whose code is not ported yet."""
     if args.checkpoint:
         raise not_ported("--checkpoint (HF checkpoint loading)", "slice 4: checkpoints")
-    if args.dataset != "dummy" or args.file_layer != "tf":
+    if args.dataset != "dummy":  # the dummy source reads no files: --file_layer does not apply
         raise not_ported(f"--dataset {args.dataset} / --file_layer {args.file_layer} (RLDS data)",
                          "slice 6: data")
     if args.data_parallel or args.ddp_semantics == "exact":

@@ -94,12 +94,23 @@ class VLAPolicy:
         if int4_kernel is None:
             int4_kernel = quant_mode == "int4" and self.device.type == "cuda"
         self.int4_kernel = bool(int4_kernel)
-        if (self.int4_kernel and quant_mode == "int4" and self.device.type == "cuda"
-                and torch_dtype(cfg) != torch.bfloat16):
-            raise ValueError(
-                f"the CUDA int4 kernel takes bf16 activations and {cfg.name!r} "
-                f"runs in {cfg.dtype}; pass int4_kernel=False (--int4_kernel off)"
-            )
+        if self.int4_kernel and quant_mode == "int4" and self.device.type == "cuda":
+            from ..models.quant import int4_group_size_for
+            from ..ops.q4_matmul import KERNEL_GROUP_SIZES
+
+            if torch_dtype(cfg) != torch.bfloat16:
+                raise ValueError(
+                    f"the CUDA int4 kernel takes bf16 activations and {cfg.name!r} "
+                    f"runs in {cfg.dtype}; pass int4_kernel=False (--int4_kernel off)"
+                )
+            if quant_gs is None:
+                quant_gs = int4_group_size_for(cfg)
+            if quant_gs not in KERNEL_GROUP_SIZES:
+                raise ValueError(
+                    f"the CUDA int4 kernel takes groups of {KERNEL_GROUP_SIZES} "
+                    f"channels and quantize={quantize!r} gives {cfg.name!r} groups "
+                    f"of {quant_gs}; pass int4_kernel=False (--int4_kernel off)"
+                )
 
         tree = params.tree() if isinstance(params, nn.Module) else params
         del params

@@ -13,11 +13,12 @@ f32 scales, out*G*4 bytes, against the card's bandwidth (3.35 TB/s on an
 H100 SXM); the operations (2*m*out*in) are far below the tensor-core peak.
 
 Two kernel bodies, chosen from the shape before the launch (`body_for`):
-"mma" for grouped mode with a group size that is a multiple of 128 channels
-(the 7B's decode tail): bf16 tensor cores on nibbles unpacked in registers,
-the weights streamed through a shared-memory ring with cp.async, K split
-among a block's warps. "fma" for dense mode and for groups of 32 or 64
-channels: CUDA-core FMAs, activations staged in shared memory per K tile.
+"mma" for dense mode and for grouped mode with a group size that is a
+multiple of 128 channels (the 7B's decode tail): bf16 tensor cores on
+nibbles unpacked (and, in dense mode, dequantized) in registers, the weights
+streamed through a shared-memory ring with cp.async, K split among a block's
+warps. "fma" for grouped mode with groups of 32 or 64 channels: CUDA-core
+FMAs, activations staged in shared memory per K tile.
 
 Layout contract (the JAX package's models/quant.py): w [out, in/2] int8 with
 channel 2j in the low nibble and 2j+1 in the high nibble; scale [out, G] f32
@@ -36,6 +37,10 @@ import torch
 
 MODES = ("grouped", "dense")
 BODIES = ("mma", "fma")
+# the group sizes (channels) the CUDA kernel takes: 32 * 2^k, k <= 5, i.e.
+# 1, 2, 4, ..., 32 lanes of 32 channels a group (`q4_matmul` and `VLAPolicy`
+# both check against this)
+KERNEL_GROUP_SIZES = tuple(32 << k for k in range(6))
 
 
 def _unpack_nibbles(w: torch.Tensor):
@@ -104,18 +109,19 @@ def q4_matmul_plain(
 
 def body_for(mode: str, in_dim: int, groups: int) -> str:
     """The kernel body a CUDA launch of this shape takes: "mma" (the tensor
-    cores) for grouped mode whose group size is a multiple of 128 channels,
-    "fma" (the CUDA cores) for dense mode and for groups of 32 or 64."""
-    return "mma" if mode == "grouped" and (in_dim // groups) % 128 == 0 else "fma"
+    cores) for dense mode and for grouped mode whose group size is a
+    multiple of 128 channels, "fma" (the CUDA cores) for grouped mode with
+    groups of 32 or 64: a grouped partial must belong to one group, and an
+    mma mixes the channels of a whole 128-channel k-block."""
+    return "mma" if mode == "dense" or (in_dim // groups) % 128 == 0 else "fma"
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     if lib.q4_matmul_bf16.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.q4_matmul_bf16.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
-        lib.q4_matmul_bf16.restype = i32
-        lib.q4_matmul_grouped_mma_bf16.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
-        lib.q4_matmul_grouped_mma_bf16.restype = i32
+        for fn in (lib.q4_matmul_bf16, lib.q4_matmul_grouped_mma_bf16, lib.q4_matmul_dense_mma_bf16):
+            fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+            fn.restype = i32
         lib.q4_matmul_error_string.argtypes = [i32]
         lib.q4_matmul_error_string.restype = ctypes.c_char_p
     return lib
@@ -151,8 +157,7 @@ def q4_matmul(y: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, mode: str =
     b, s, in_dim = y.shape
     out_dim, in_half = w.shape
     g = scale.shape[1]
-    lanes = in_half // g // 16  # 16 packed bytes (32 channels) per lane
-    if in_dim % 32 or in_half % (16 * g) or lanes < 1 or lanes > 32 or lanes & (lanes - 1):
+    if in_dim % 32 or in_half % g or in_dim // g not in KERNEL_GROUP_SIZES:
         raise ValueError(
             f"the CUDA q4_matmul kernel needs in % 32 == 0 and a group size "
             f"of 32 * 2^k channels (k <= 5); got in={in_dim}, group size "
@@ -164,10 +169,12 @@ def q4_matmul(y: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, mode: str =
     args = (y.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), b * s, in_dim, out_dim, g)
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
-        if body == "mma":
-            rc = lib.q4_matmul_grouped_mma_bf16(*args, stream)
+        if body == "fma":
+            rc = lib.q4_matmul_bf16(*args, stream)
+        elif mode == "dense":
+            rc = lib.q4_matmul_dense_mma_bf16(*args, stream)
         else:
-            rc = lib.q4_matmul_bf16(*args, int(mode == "dense"), stream)
+            rc = lib.q4_matmul_grouped_mma_bf16(*args, stream)
     if rc != 0:
         msg = lib.q4_matmul_error_string(rc).decode()
         raise RuntimeError(f"q4_matmul kernel launch failed ({body} body): {msg} (cudaError {rc})")

@@ -94,7 +94,7 @@ def test_state_round_trip_and_resume(tmp_path):
 @pytest.mark.parametrize("flags,match", [
     (["--checkpoint", "/nonexistent"], "checkpoint"),
     (["--dataset", "bridge_orig"], "RLDS"),
-    (["--file_layer", "native"], "RLDS"),
+    (["--dataset", "bridge_orig", "--file_layer", "native"], "RLDS"),
     (["--data_parallel", "true"], "data-parallel"),
     (["--ddp_semantics", "exact"], "data-parallel"),
     (["--profile", "/tmp/trace"], "profile"),
@@ -103,9 +103,22 @@ def test_unported_options_raise(flags, match):
     argv = ["--device", "cpu", *TINY]
     if "--dataset" in flags:
         argv[argv.index("--dataset") + 1] = flags[1]
-        flags = []
+        flags = flags[2:]
     with pytest.raises(NotImplementedError, match=match):
         cli.main(argv + flags)
+
+
+@pytest.mark.parametrize("layer", ["native", "tfrecord"])
+def test_dummy_dataset_ignores_file_layer(tmp_path, layer):
+    """--dataset dummy reads no files, so --file_layer does not apply (the
+    JAX CLI returns the dummy iterators before it reads it): the run
+    completes with the final patch of the same run under the default tf."""
+    argv = ["--attack", "tma", "--device", "cpu", "--maskidx", "6", "--iter", "2", "--innerLoop", "1",
+            "--model", "vla-tiny", "--dataset", "dummy", "--bs", "2", "--eval_every", "2",
+            "--eval_batches", "1"]
+    want = cli.main([*argv, "--output", str(tmp_path / "tf")]).patch
+    got = cli.main([*argv, "--file_layer", layer, "--output", str(tmp_path / layer)]).patch
+    np.testing.assert_array_equal(got, want)
 
 
 def test_cli_without_device_cpu_raises_without_a_gpu(monkeypatch, tmp_path):

@@ -6,6 +6,9 @@ On the CPU the wrapper computes the plain version; the CUDA kernel itself is
 held against the plain version on the card by test_torch_q4_matmul_cuda.py
 (and by chip_smoke.py)."""
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -13,7 +16,9 @@ import torch
 
 from roboticattack_tpu.ops.q4_matmul import q4_matmul as jax_q4_matmul
 from roboticattack_tpu.ops.q4_matmul import q4_reference
+from roboticattack_torch.ops import kernel_build
 from roboticattack_torch.ops.q4_matmul import (
+    KERNEL_GROUP_SIZES,
     _unpack_nibbles,
     body_for,
     q4_matmul,
@@ -108,11 +113,14 @@ def test_wrapper_rejects_bad_shapes_and_modes():
     ("grouped", 2048, 2, "mma"),     # groups of 1024
     ("grouped", 512, 8, "fma"),      # groups of 64
     ("grouped", 512, 16, "fma"),     # groups of 32
-    ("dense", 4096, 32, "fma"),
+    ("dense", 4096, 32, "mma"),
+    ("dense", 512, 8, "mma"),        # groups of 64
+    ("dense", 512, 16, "mma"),       # groups of 32
 ])
 def test_body_for_routes_by_shape(mode, in_dim, groups, body):
-    """Grouped mode with whole 128-channel k-blocks per group takes the
-    tensor-core body; dense mode and groups of 32/64 take the FMA body."""
+    """Grouped mode with whole 128-channel k-blocks per group, and dense mode
+    with any group, take the tensor-core body; grouped groups of 32/64 take
+    the FMA body."""
     assert body_for(mode, in_dim, groups) == body
 
 
@@ -194,9 +202,10 @@ def test_fragment_order_matches_plain(out_dim, in_dim, gs, m):
 
 
 def test_groups_of_64_cannot_flush_at_a_kblock_boundary():
-    """Why groups of 32/64 take the FMA body: every mma of a k-block mixes
-    channels of two 64-channel groups, so no partial belongs to one group,
-    and scaling a k-block's partial by one scale is a different function."""
+    """Why grouped mode with groups of 32/64 takes the FMA body: every mma
+    of a k-block mixes channels of two 64-channel groups, so no partial
+    belongs to one group, and scaling a k-block's partial by one scale is a
+    different function. (Dense mode scales each weight before the mma.)"""
     for b in range(2):
         _, _, b_chan = _fragment_map(b)
         assert all(len(set((b_chan[s] // 64).tolist())) == 2 for s in range(8))
@@ -225,3 +234,105 @@ def test_offset_binary_unpack_is_exact():
         v = ((words >> (4 * j)) & 0x000F000F) ^ 0x43084308
         pair = v.to(torch.int32).view(torch.int16).view(torch.bfloat16).reshape(64, 2) - k136
         assert torch.equal(pair.float(), nibbles[:, [j, j + 4]])
+
+
+def _dense_a_pair(words, j, scale):
+    """The dense body's A register (`a_pair<4j, true>`), on 32-bit words of
+    packed bytes: the s4 pair of nibbles j, j+4 as bf16 (as the unpack
+    above), widened to two f32 by bit placement (low half << 16, high half
+    masked), each multiplied by the f32 scale, rounded to bf16 (nearest
+    even, as cvt.rn.bf16x2.f32). words [n] int64, scale [k] f32 ->
+    [n, 2, k] bf16 (nibble j, nibble j+4)."""
+    k136 = torch.tensor(136.0, dtype=torch.bfloat16)
+    v = ((words >> (4 * j)) & 0x000F000F) ^ 0x43084308
+    pair = (v.to(torch.int32).view(torch.int16).view(torch.bfloat16).reshape(-1, 2) - k136)
+    p = pair.view(torch.int32)[:, 0].to(torch.int64) & 0xFFFFFFFF  # the 32-bit register
+    lo = ((p << 16) & 0xFFFFFFFF).to(torch.int32).view(torch.float32)
+    hi = (p & 0xFFFF0000).to(torch.int32).view(torch.float32)
+    return (torch.stack([lo, hi], dim=-1)[..., None] * scale).to(torch.bfloat16)
+
+
+def test_dense_dequant_is_the_plain_versions_bits():
+    """(a) The dense body's dequant, over all 16 nibbles (all 256 bytes) and
+    4096 f32 scales from 1e-42 (subnormal products) to 1e38 (products that
+    overflow to inf), both signs: bit for bit the plain version's
+    bf16(f32(n) * s). The f32 multiply rounds once and the conversion once,
+    as in `q4_matmul_plain`."""
+    rng = np.random.default_rng(11)
+    mag = 10.0 ** rng.uniform(-42, 38, size=4096)
+    scale = torch.from_numpy((mag * rng.choice([-1.0, 1.0], size=4096)).astype(np.float32))
+    assert (scale.abs() < 1e-38).any() and (scale.abs() > 1e37).any()
+    packed = torch.arange(-128, 128, dtype=torch.int32).to(torch.int8)
+    words = packed.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    lo, hi = _unpack_nibbles(packed[None])
+    nibbles = torch.stack([lo[0], hi[0]], dim=-1).reshape(64, 8).float()
+    for j in range(4):
+        got = _dense_a_pair(words, j, scale)
+        want = (nibbles[:, [j, j + 4], None] * scale).to(torch.bfloat16)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16)), j
+
+
+def _mma_order_dense(y, w, scale):
+    """The dense body's arithmetic in plain torch: per k-block b, 8 f32 mma
+    products through the fragment map into one accumulator (no per-group
+    partial), each A element dequantized with its lane's scale
+    scale[:, (128b + 32t) // gs], as `_dense_a_pair` does; channels past the
+    contraction's end (a partial last k-block) contribute nothing. y [m, in]
+    f32, result [m, out] f32."""
+    lo, hi = _unpack_nibbles(w)
+    out_dim, in_half = w.shape
+    in_dim = 2 * in_half
+    gs = in_dim // scale.shape[1]
+    acc = torch.zeros(y.shape[0], out_dim)
+    t = (torch.arange(16) % 8) // 2  # the lane (g, t) that holds logical k
+    for b in range(-(-in_dim // 128)):
+        a_byte, a_nib, b_chan = _fragment_map(b)
+        for s in range(8):
+            live = b_chan[s] < in_dim
+            byte = a_byte[s].clamp(max=in_half - 1)
+            n = torch.where(a_nib[s] == 0, lo[:, byte], hi[:, byte]).float()  # [out, 16]
+            sc = scale[:, ((128 * b + 32 * t) // gs).clamp(max=scale.shape[1] - 1)]
+            a = (n * sc).to(torch.bfloat16).float() * live
+            acc += y[:, b_chan[s].clamp(max=in_dim - 1)] * live @ a.T
+    return acc
+
+
+@pytest.mark.parametrize("out_dim,in_dim,gs,m", [
+    (64, 512, 32, 8), (64, 512, 64, 3), (96, 512, 128, 8), (64, 1024, 256, 5),
+    (48, 384, 32, 4),   # an odd count of k-blocks
+    (48, 352, 32, 2),   # a partial last k-block (in % 128 == 96)
+    (48, 320, 64, 3),   # a partial last k-block (in % 128 == 64)
+])
+def test_dense_fragment_order_matches_plain(out_dim, in_dim, gs, m):
+    """(b) Dequantizing through the fragment map with each lane's group
+    scale and summing in the kernel's order is the plain version's dense
+    function (weights rounded to bf16, one f32 contraction): both sum exact
+    products in f32, in different orders (1e-5 relative)."""
+    y, w, scale = _mk(out_dim, in_dim, gs, m, 1, seed=9)
+    yt = torch.from_numpy(y).to(torch.bfloat16).float()[:, 0]
+    wt, st = torch.from_numpy(w), torch.from_numpy(scale)
+    got = _mma_order_dense(yt, wt, st)
+    want = q4_matmul_plain(yt[:, None], wt, st, "dense", torch.bfloat16)[:, 0]
+    assert want.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("mode", ["grouped", "dense"])
+def test_sweep_variants_still_match_the_cuda_source(mode):
+    """Every variant of scripts/sweep_q4_mma.py is a text edit of
+    csrc/q4_matmul.cu: each edit must still find its text there, and change
+    the source."""
+    path = Path(__file__).resolve().parents[1] / "scripts" / "sweep_q4_mma.py"
+    spec = importlib.util.spec_from_file_location("sweep_q4_mma", path)
+    sweep = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sweep)
+    src = (kernel_build.CSRC / "q4_matmul.cu").read_text()
+    texts = sweep.variant_sources(mode, src)
+    assert texts.pop("as is") == src
+    assert texts and all(t != src for t in texts.values())
+
+
+def test_kernel_group_sizes_are_32_times_a_power_of_two():
+    """The one definition of the groups the CUDA kernel takes (the wrapper
+    and VLAPolicy both read it): 1 to 32 lanes of 32 channels."""
+    assert KERNEL_GROUP_SIZES == (32, 64, 128, 256, 512, 1024)

@@ -47,6 +47,10 @@ def _mk(out_dim, in_dim, gs, m, device, seed=5):
     (384, 1024, 256, 5),   # tensor-core body: groups of 256 (2 k-blocks)
     (96, 384, 128, 4),     # tensor-core body: an odd count of 128-channel k-blocks
     (4096, 4096, 128, 2),
+    (4096, 4096, 32, 8),   # groups of 32 (dense: 4 scales a row a k-block)
+    (4096, 4096, 64, 1),   # groups of 64 (dense: 2)
+    (200, 352, 32, 5),     # dense: a partial last k-block (in % 128 == 96)
+    (96, 320, 64, 9),      # dense: a partial last k-block (in % 128 == 64), m > 8
 ])
 def test_cuda_kernel_matches_plain(cuda, mode, out_dim, in_dim, gs, m):
     """Both sides accumulate in f32 in different orders and round the output
@@ -85,11 +89,11 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode,gs,body", [
     ("grouped", 128, "mma"), ("grouped", 256, "mma"), ("grouped", 64, "fma"),
-    ("dense", 128, "fma"), ("dense", 64, "fma"),
+    ("dense", 128, "mma"), ("dense", 64, "mma"), ("dense", 32, "mma"),
 ])
 def test_cuda_dispatch_counts_the_body_that_ran(cuda, mode, gs, body):
-    """Grouped mode with groups of 128 * 2^k launches the tensor-core body;
-    groups of 64 and dense mode the FMA body."""
+    """Grouped mode with groups of 128 * 2^k, and dense mode, launch the
+    tensor-core body; grouped groups of 64 the FMA body."""
     y, w, scale = _mk(256, 1024, gs, 4, cuda)
     assert body_for(mode, 1024, 1024 // gs) == body
     before = dict(q4_matmul.launches_by_body)
@@ -100,12 +104,15 @@ def test_cuda_dispatch_counts_the_body_that_ran(cuda, mode, gs, body):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode,gs", [("grouped", 128), ("dense", 128), ("dense", 64), ("dense", 32)])
 @pytest.mark.parametrize("out_dim,in_dim,m", [(4096, 11008, 8), (11008, 4096, 1)])
-def test_cuda_mma_body_is_bit_deterministic(cuda, out_dim, in_dim, m):
+def test_cuda_mma_body_is_bit_deterministic(cuda, mode, gs, out_dim, in_dim, m):
     """The warps' partials are summed in a fixed order: two calls give the
-    same bits."""
-    y, w, scale = _mk(out_dim, in_dim, 128, m, cuda)
-    first = q4_matmul(y, w, scale)
-    second = q4_matmul(y, w, scale)
+    same bits (dense mode at each scale layout: 1, 2 and 4 scales a row a
+    k-block)."""
+    y, w, scale = _mk(out_dim, in_dim, gs, m, cuda)
+    assert body_for(mode, in_dim, in_dim // gs) == "mma"
+    first = q4_matmul(y, w, scale, mode=mode)
+    second = q4_matmul(y, w, scale, mode=mode)
     torch.cuda.synchronize()
     assert torch.equal(first.view(torch.int16), second.view(torch.int16))

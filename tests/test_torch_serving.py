@@ -5,6 +5,7 @@ no silent CPU fallback, unported options refused)."""
 
 import ast
 import base64
+import dataclasses
 import json
 import threading
 import time
@@ -126,6 +127,36 @@ def test_int4_kernel_on_cuda_refuses_a_float32_model(monkeypatch, jax_params):
             VLAPolicy(params_from_jax(jax_params, "cpu", T_TINY), T_TINY,
                       WordStubTokenizer(), STATS, quantize="int4",
                       int4_kernel=kernel, device="cuda")
+
+
+def test_int4_kernel_on_cuda_refuses_a_group_the_kernel_cannot_take(monkeypatch, jax_params):
+    """The CUDA kernel takes groups of 32 * 2^k channels (k <= 5): a bf16
+    model quantized with groups of 16 and the kernel on, explicitly or by the
+    CUDA default, is refused at construction, before any weight moves (not
+    at the first tail launch, after the prefill). The model's own group, 64,
+    passes the same check and constructs."""
+    bf16 = dataclasses.replace(T_TINY, dtype="bfloat16")
+    moved = []
+
+    def to_device(tree, device):  # keeps the weights on the CPU, records the move
+        moved.append(device)
+        return tree
+
+    monkeypatch.setattr(tpolicy.torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(tpolicy, "_to_device", to_device)
+    for kernel in (None, True):
+        with pytest.raises(ValueError, match="int4_kernel=False"):
+            VLAPolicy(params_from_jax(jax_params, "cpu", bf16), bf16, WordStubTokenizer(), STATS,
+                      quantize="int4:16", int4_kernel=kernel, device="cuda")
+    assert moved == []
+    for quantize in ("int4", "int4:64"):
+        pol = VLAPolicy(params_from_jax(jax_params, "cpu", bf16), bf16, WordStubTokenizer(), STATS,
+                        quantize=quantize, device="cuda")
+        assert pol.int4_kernel and pol.device.type == "cuda"
+    assert len(moved) == 2
+    pol = VLAPolicy(params_from_jax(jax_params, "cpu", bf16), bf16, WordStubTokenizer(), STATS,
+                    quantize="int4:64", int4_kernel=True, device="cpu")
+    assert pol.int4_kernel
 
 
 def test_cpu_int4_policy_launches_no_kernel():
