@@ -9,14 +9,26 @@ Phases, each of which fails the run (non-zero exit, no result line) on error:
                (one nvcc per source, all started together);
   3. kernels — each kernel against its plain PyTorch version on the card at
                the OpenVLA-7B projection shapes, with times, the byte bound
-               and a library yardstick (both modes also with groups of 32
-               and 64 channels, errors only: grouped mode there runs the
-               FMA body);
+               and a library yardstick, at m = 1 and 8 rows (the sequential
+               tail) and, for B4, m = 56 (the Jacobi pass at bs 8, y
+               [8, 7, in]); both modes also with groups of 32 and 64
+               channels, errors only (grouped mode there runs the FMA body);
   4. slice   — the int4 serving path end to end: random seeded OpenVLA-7B
                weights -> int4 -> VLAPolicy -> DynamicBatcher ->
                ActionServer on 127.0.0.1, answering concurrent HTTP requests;
                the kernel launch count of that run; the same batch through
                the plain int4 path; prefill/tail times and peak memory;
+  options — the serving options at bs 8 on the same int4 policy: the int8
+               and packed-int4 KV caches (prefill logits bit-equal to the
+               bf16 cache's, cache bytes from the shapes beside the peak),
+               visual_tokens (all patches bit-equal to no pruning; 128),
+               Jacobi drafts through a drafts-enabled ActionServer (round 2
+               sends round 1's tokens back: equal tokens, 1.0 verify pass a
+               batch on /healthz, B4 launches = passes x 32 x 7, all mma;
+               zero-draft tokens against the sequential kernel tail); then a
+               w8a8 7B policy beside weight-only int8 on its weights; for
+               each, prefill/tail wall ms, device busy ms, B4 launches by
+               body and peak memory;
   5. flash   — the attention kernels B1/B2 against their plain versions on
                the card (the attack step's shape with a dummy batch's causal
                + padding bias, B=1, a ragged S, an all-zero bias, S=17 inside
@@ -77,6 +89,9 @@ from roboticattack_torch.utils.prompting import WordStubTokenizer
 
 MODEL = "openvla-7b"
 SEED = 0
+VT_KEEP = 128  # visual_tokens of the pruned decode: half the 7B's 256 patches
+JACOBI_M = 56  # B4's rows in the Jacobi pass at bs 8: 8 rows x 7 draft positions
+M_ROWS = (1, 8, JACOBI_M)
 GROUP = 128  # the 7B's int4 group size (models/quant.py int4_group_size_for)
 # (label, out, in) of the decode tail's projections; launches per layer
 PROJ = [("q/k/v/o_w", 4096, 4096, 4), ("gate/up_w", 11008, 4096, 2), ("down_w", 4096, 11008, 1)]
@@ -220,14 +235,17 @@ def phase_kernels(bw: float):
         scs = [(torch.rand((out_dim, g), generator=gen, device="cuda") + 0.5) * 2e-3
                for _ in range(nbuf)]
         dense_w = [dequant_bf16(w, s) for w, s in zip(ws[:4], scs[:4])]
-        for m in (1, 8):
-            y = torch.randn((m, 1, in_dim), generator=gen, device="cuda").to(torch.bfloat16)
+        # m = 1 and 8: the sequential tail's s=1 steps at bs 1 and 8; m = 56:
+        # the Jacobi pass at bs 8, y [8, 7, in] (seven row chunks of 8)
+        for m in M_ROWS:
+            y = torch.randn((m // 7, 7, in_dim) if m == JACOBI_M else (m, 1, in_dim),
+                            generator=gen, device="cuda").to(torch.bfloat16)
             nbytes = wbytes + out_dim * g * 4 + m * in_dim * 2 + m * out_dim * 2
             byte_ms = nbytes / bw * 1e3
             op_ms = 2 * m * out_dim * in_dim / PEAK_BF16_FLOPS * 1e3
             bound_ms = max(byte_ms, op_ms)
             library_ms = device_ms(lambda i: torch.matmul(y, dense_w[i % len(dense_w)].T))
-            for mode in ("grouped", "dense"):
+            for mode in ("grouped", "dense") if m != JACOBI_M else ("grouped",):
                 body = KERNELS[mode][2]
                 got = launch_body(f"{mode} {label} m={m}", body,
                                   lambda: q4_matmul(y, ws[0], scs[0], mode=mode))
@@ -284,41 +302,93 @@ def phase_kernels(bw: float):
     return rows, group_err
 
 
-def post_act(url: str, frame: np.ndarray, task: str) -> dict:
-    body = json.dumps({
-        "task": task, "shape": list(frame.shape),
-        "image_b64": base64.b64encode(frame.tobytes()).decode(),
-    }).encode()
-    req = urllib.request.Request(url, data=body, headers={"Content-Type": "application/json"})
+def post_act(url: str, frame: np.ndarray, task: str, draft=None) -> dict:
+    payload = {"task": task, "shape": list(frame.shape),
+               "image_b64": base64.b64encode(frame.tobytes()).decode()}
+    if draft is not None:
+        payload["draft_tokens"] = [int(t) for t in draft]
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
     with urllib.request.urlopen(req, timeout=600) as resp:
         return {"status": resp.status, **json.loads(resp.read())}
 
 
-def timed_decode(policy, frames, tasks, num_steps: int, reps: int = 3) -> float:
-    """Median host ms of one greedy decode of `num_steps` tokens (ends in a
-    synchronize)."""
-    from roboticattack_torch.models.decode import greedy_decode_actions
+def get_json(url: str) -> dict:
+    with urllib.request.urlopen(url, timeout=60) as resp:
+        return json.loads(resp.read())
 
-    ids, mask, px = policy.prepare(frames, tasks)
+
+def concurrent_posts(url: str, frames, tasks, drafts=None) -> list:
+    """One POST /act a frame, all at once from their own threads; raises
+    unless every reply is 200 with 7 finite actions."""
+    replies, errors = [None] * len(frames), []
+
+    def client(i):
+        try:
+            replies[i] = post_act(url, frames[i], tasks[i], None if drafts is None else drafts[i])
+        except Exception as e:  # reported below; fails the phase
+            errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(frames))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"HTTP requests failed: {errors}")
+    for i, r in enumerate(replies):
+        a = np.asarray(r["action"], np.float64)
+        if r["status"] != 200 or a.shape != (7,) or not np.all(np.isfinite(a)):
+            raise AssertionError(f"reply {i} is not 7 finite actions: {r}")
+    return replies
+
+
+def decode_call(policy, frames, tasks, num_steps: int, **options):
+    """A closure running one greedy decode of `num_steps` tokens
+    (`VLAPolicy.decode_inputs`) on inputs prepared once, with the policy's
+    decode options overridden by `options` (and draft_tokens [B, 7], cut to
+    num_steps); it ends in a synchronize and returns the DecodeResult."""
+    inputs = policy.prepare(frames, tasks)
+    draft = options.pop("draft_tokens", None)
+    if draft is not None:
+        draft = torch.as_tensor(np.ascontiguousarray(draft[:, :num_steps]), dtype=torch.int32,
+                                device=policy.device)
+
+    def run():
+        res = policy.decode_inputs(inputs, draft, num_steps=num_steps, **options)
+        torch.cuda.synchronize()
+        return res
+
+    return run
+
+
+def timed_decode(policy, frames, tasks, reps: int = 5, **options):
+    """Host ms of the prefill (a decode of 1 token) and of the whole decode
+    of 7 tokens, timed in turns (prefill, whole, prefill, whole, ...) after
+    one untimed call of each, every call ending in a synchronize: (median
+    prefill, median of the turns' differences = the tail, median whole).
+    Taking the tail within a turn keeps drifts of the shared host out of
+    it."""
+    runs = [decode_call(policy, frames, tasks, n, **options) for n in (1, 7)]
     times = []
     for _ in range(reps + 1):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        with torch.inference_mode():
-            greedy_decode_actions(policy.model.tree(), policy.cfg, ids, mask, px,
-                                  num_steps=num_steps, cooked_weights=True,
-                                  int4_kernel=policy.int4_kernel)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t) * 1e3)
-    return float(np.median(times[1:]))
+        turn = []
+        for run in runs:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run()
+            turn.append((time.perf_counter() - t) * 1e3)
+        times.append(turn)
+    pre, full = np.array(times[1:]).T
+    return float(np.median(pre)), float(np.median(full - pre)), float(np.median(full))
 
 
-def device_profile(run, wall_ms: float, label: str, card: str, match=()) -> dict:
+def device_profile(run, wall_ms: float, label: str, card: str, match=(), top: int = 10) -> dict:
     """torch.profiler over one call of `run` (after one unprofiled call):
     device kernel time by name and the device-busy share against the
     unprofiled wall time `wall_ms` of the same work. Returns the device ms of
-    the kernels whose names contain each string of `match` ("not measured"
-    when the profiler gives no device time)."""
+    the kernels whose names contain each string of `match`, and the busy ms
+    under "busy" ("not measured" when the profiler gives no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     run()
@@ -331,7 +401,7 @@ def device_profile(run, wall_ms: float, label: str, card: str, match=()) -> dict
             and not e.name.startswith("Command Buffer")]
     if not kern:
         log(f"{label}: device busy share: not measured (the profiler recorded no device time)")
-        return {m: "not measured" for m in match}
+        return {m: "not measured" for m in (*match, "busy")}
     spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
     busy_us, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     for a, b in spans[1:]:
@@ -349,27 +419,19 @@ def device_profile(run, wall_ms: float, label: str, card: str, match=()) -> dict
     log(f"{label}: device busy {busy_us / 1e3:.2f} ms of {wall_ms:.2f} ms wall (unprofiled) -> "
         f"device busy share {busy_us / 1e3 / wall_ms:.3f}; "
         + "; ".join(f"{m} kernels {v:.2f} ms" for m, v in found.items()) + f" [{card}]")
-    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
+    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
         log(f"{label}:   device {t / 1e3:8.3f} ms  x{n:<6d} {name[:100]}")
-    return found
+    return dict(found, busy=busy_us / 1e3)
 
 
-def device_breakdown(policy, frames, tasks, num_steps: int, wall_ms: float, card: str) -> None:
+def device_breakdown(policy, frames, tasks, num_steps: int, wall_ms: float, card: str,
+                     label: str = "slice", top: int = 10, **options) -> dict:
     """The device breakdown of one decode of `num_steps` tokens (1 = the
-    prefill alone)."""
-    from roboticattack_torch.models.decode import greedy_decode_actions
-
-    ids, mask, px = policy.prepare(frames, tasks)
-
-    def run():
-        with torch.inference_mode():
-            greedy_decode_actions(policy.model.tree(), policy.cfg, ids, mask, px,
-                                  num_steps=num_steps, cooked_weights=True,
-                                  int4_kernel=policy.int4_kernel)
-        torch.cuda.synchronize()
-
-    device_profile(run, wall_ms, f"slice: bs={len(frames)} decode of {num_steps} token(s)", card,
-                   match=("q4_matmul",))
+    prefill alone), with the policy's decode options overridden by
+    `options`."""
+    return device_profile(decode_call(policy, frames, tasks, num_steps, **options), wall_ms,
+                          f"{label}: bs={len(frames)} decode of {num_steps} token(s)", card,
+                          match=("q4_matmul",), top=top)
 
 
 def phase_slice(card: str) -> dict:
@@ -402,35 +464,18 @@ def phase_slice(card: str) -> dict:
         host, port = server.address
         url = f"http://{host}:{port}/act"
         batches_before = server.batcher.stats["batches"]
-        replies = [None] * N_REQUESTS
-        errors = []
-
-        def client(i):
-            try:
-                replies[i] = post_act(url, frames[i], tasks[i])
-            except Exception as e:  # reported below; fails the phase
-                errors.append(f"request {i}: {type(e).__name__}: {e}")
-
         reset_launches()  # the main path's count starts here
-        threads = [threading.Thread(target=client, args=(i,)) for i in range(N_REQUESTS)]
         t = time.perf_counter()
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(timeout=900)
-        serve_s = time.perf_counter() - t
-        launches = dict(q4_matmul.launches)  # read right after the main path
-        by_body = dict(q4_matmul.launches_by_body)
+        try:
+            concurrent_posts(url, frames, tasks)
+        finally:
+            serve_s = time.perf_counter() - t
+            launches = dict(q4_matmul.launches)  # read right after the main path
+            by_body = dict(q4_matmul.launches_by_body)
         decodes = server.batcher.stats["batches"] - batches_before
         bucket_counts = server.batcher.bucket_counts()
     finally:
         server.shutdown()
-    if errors or any(th.is_alive() for th in threads):
-        raise AssertionError(f"HTTP requests failed: {errors}")
-    for i, r in enumerate(replies):
-        a = np.asarray(r["action"], np.float64)
-        if r["status"] != 200 or a.shape != (7,) or not np.all(np.isfinite(a)):
-            raise AssertionError(f"reply {i} is not 7 finite actions: {r}")
     log(f"slice: {N_REQUESTS} concurrent POST /act answered 200 with 7 finite actions each "
         f"in {serve_s:.3f} s over {decodes} decode call(s) (buckets {bucket_counts})")
     log(f"slice: q4_matmul launches in the served run {launches}, by body {by_body}; expected "
@@ -443,21 +488,20 @@ def phase_slice(card: str) -> dict:
 
     # the same batch through the kernel tail and through the plain int4 tail
     kern = policy.decode(frames, tasks)
-    policy.int4_kernel = False
-    plain = policy.decode(frames, tasks)
-    policy.int4_kernel = True
+    plain = policy.decode(frames, tasks, int4_kernel=False)
     tk, tp = kern.tokens.cpu().numpy(), plain.tokens.cpu().numpy()
     first_ok = np.array_equal(tk[:, 0], tp[:, 0])
     prefill_logits_equal = torch.equal(kern.logits[:, 0], plain.logits[:, 0])
     agree = float((tk[:, 1:] == tp[:, 1:]).mean())
     # tail logits are comparable while the tokens fed so far agree
-    rel = []
+    rel, drift = [], 0.0
     for b in range(tk.shape[0]):
         for i in range(1, tk.shape[1]):
             if not np.array_equal(tk[b, :i], tp[b, :i]):
                 break
             lk, lp = kern.logits[b, i].float(), plain.logits[b, i].float()
             rel.append(((lk - lp).norm() / lp.norm()).item())
+            drift = max(drift, (lk - lp).abs().max().item())
     rel_max = max(rel) if rel else float("nan")
     # The plain tail rounds every dequantized weight to bf16 (2^-9 relative)
     # where the kernel contracts the exact s4 integers in f32 and scales the
@@ -468,7 +512,7 @@ def phase_slice(card: str) -> dict:
     log(f"slice: kernel tail vs plain int4 tail on the same batch: first token equal "
         f"{first_ok} (prefill logits bit-equal {prefill_logits_equal}); token agreement "
         f"on positions 1-6 {agree:.3f}; tail logits max rel err {rel_max:.4g} over "
-        f"{len(rel)} positions (tol {logits_tol})")
+        f"{len(rel)} positions (tol {logits_tol}), max abs difference {drift:.4g}")
     if not (first_ok and prefill_logits_equal):
         raise AssertionError("first token differs between the kernel and plain int4 paths")
     if not rel or not rel_max <= logits_tol:
@@ -476,16 +520,207 @@ def phase_slice(card: str) -> dict:
 
     timings = {}
     for bs in (1, 8):
-        pre = timed_decode(policy, frames[:bs], tasks[:bs], num_steps=1)
-        full = timed_decode(policy, frames[:bs], tasks[:bs], num_steps=7)
-        timings[bs] = (pre, full - pre, full)
-        log(f"slice: bs={bs} prefill_ms={pre:.2f} decode_tail_ms={full - pre:.2f} "
+        pre, tail, full = timed_decode(policy, frames[:bs], tasks[:bs])
+        timings[bs] = (pre, tail, full)
+        log(f"slice: bs={bs} prefill_ms={pre:.2f} decode_tail_ms={tail:.2f} "
             f"(6 steps) decode_total_ms={full:.2f} [{card}]")
     device_breakdown(policy, frames, tasks, 1, timings[8][0], card)
     device_breakdown(policy, frames, tasks, 7, timings[8][2], card)
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"slice: peak torch.cuda.max_memory_allocated while serving = {peak:.2f} GiB [{card}]")
-    return {"launches": launches, "by_body": by_body, "timings": timings, "peak_gib": peak}
+    return {"launches": launches, "by_body": by_body, "timings": timings, "peak_gib": peak,
+            "policy": policy, "frames": frames, "tasks": tasks, "base": kern, "drift": drift}
+
+
+def cache_gb(cfg, bs: int, total: int, mode) -> float:
+    """The KV cache's bytes (GB, 1e9) reckoned from its shapes."""
+    from roboticattack_torch.models.decode import kv_cache_shapes
+
+    shapes = kv_cache_shapes(cfg.llm, bs, total, mode, torch.bfloat16)
+    return sum(math.prod(s) * torch.empty((), dtype=dt).element_size() for s, dt in shapes.values()) / 1e9
+
+
+def first_flips(seq, tokens) -> list:
+    """Per row, the first position where `tokens` leave the sequential
+    decode `seq` (a DecodeResult with logits); both were fed the same tokens
+    before it. (row, position, the sequential logits' margin there of their
+    own token over the one `tokens` chose)."""
+    out = []
+    st = seq.tokens.cpu().numpy()
+    for b in range(st.shape[0]):
+        diff = np.nonzero(st[b] != np.asarray(tokens[b]))[0]
+        if len(diff):
+            j = int(diff[0])
+            lg = seq.logits[b, j].float()
+            out.append((b, j, (lg[int(st[b, j])] - lg[int(tokens[b][j])]).item()))
+    return out
+
+
+def phase_options(sl: dict, card: str) -> dict:
+    """The single-device serving options on the slice phase's int4 7B policy
+    at bs=8 (and a w8a8 7B policy): the int8 and int4 KV caches, visual-token
+    pruning, the w8a8 prefill against weight-only int8, and Jacobi drafts
+    through HTTP; for each, prefill/tail wall ms, device busy ms, B4
+    launches by body and peak memory."""
+    from roboticattack_torch.eval.policy import VLAPolicy
+
+    policy, frames, tasks, base = sl["policy"], sl["frames"], sl["tasks"], sl["base"]
+    cfg = policy.cfg
+    bs, per_pass = len(frames), cfg.llm.num_layers * 7
+    total = 1 + cfg.num_patches + policy.prompt_pad - 1 + 7  # prefix slots + 7 decode slots
+    base_tok = base.tokens.cpu().numpy()
+    rows = {}
+
+    def run_option(label, pol, want_b4=None, **opts):
+        """One bs=8 decode with `opts` (B4 launches by body and peak memory
+        over it), then prefill and whole-decode wall times and the device
+        breakdown of the whole decode."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        res = decode_call(pol, frames, tasks, 7, **opts)()
+        b4 = dict(q4_matmul.launches_by_body)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        acts = res.actions.cpu().numpy()
+        if acts.shape != (bs, 7) or not np.all(np.isfinite(acts)):
+            raise AssertionError(f"{label}: actions {acts.shape} not 7 finite a row")
+        if want_b4 is not None and b4 != {"mma": want_b4(res), "fma": 0}:
+            raise AssertionError(f"{label}: B4 launches by body {b4}, expected {want_b4(res)} on the mma body")
+        pre, tail, full = timed_decode(pol, frames, tasks, **opts)
+        busy = device_breakdown(pol, frames, tasks, 7, full, card, label=f"options {label}", top=3,
+                                **opts)["busy"]
+        row = dict(prefill_ms=pre, tail_ms=tail, total_ms=full, busy_ms=busy, b4=b4,
+                   peak_gib=peak, resident_gib=resident, passes=res.verify_passes)
+        rows[label] = row
+        log(f"options: {label} bs={bs}: prefill_ms={pre:.2f} tail_ms={tail:.2f} "
+            f"total_ms={full:.2f} device_busy_ms={busy if isinstance(busy, str) else f'{busy:.2f}'} "
+            f"verify_passes={res.verify_passes} B4 launches by body {b4} peak {peak:.2f} GiB "
+            f"(resident before {resident:.2f} GiB) [{card}]")
+        return res
+
+    seq = per_pass * 6
+    run_option("bf16 cache (the slice path)", policy, lambda r: seq)
+
+    # --- KV cache int8 / int4
+    for mode in ("int8", "int4"):
+        label = f"kv_cache={mode}"
+        res = run_option(label, policy, lambda r: seq, kv_cache=mode)
+        tok = res.tokens.cpu().numpy()
+        prefill_equal = torch.equal(res.logits[:, 0], base.logits[:, 0])
+        agree = float((tok[:, 1:] == base_tok[:, 1:]).mean())
+        gb, gb_bf16 = cache_gb(cfg, bs, total, mode), cache_gb(cfg, bs, total, None)
+        rows[label].update(cache_gb=gb, agree=agree)
+        log(f"options: {label}: prefill logits bit-equal to the bf16-cache decode {prefill_equal}, first "
+            f"token equal {np.array_equal(tok[:, 0], base_tok[:, 0])}; tail-token agreement with the "
+            f"bf16 cache {agree:.3f}; cache {gb:.4f} GB from its shapes at total={total} (bf16 cache "
+            f"{gb_bf16:.4f} GB) beside a peak of {rows[label]['peak_gib']:.2f} GiB, "
+            f"{rows[label]['peak_gib'] - rows[label]['resident_gib']:.2f} GiB above the resident weights [{card}]")
+        if not (prefill_equal and np.array_equal(tok[:, 0], base_tok[:, 0])):
+            raise AssertionError(f"{label}: the prefill logits or first token differ from the bf16 cache's")
+
+    # --- visual tokens
+    allv = decode_call(policy, frames, tasks, 7, visual_tokens=cfg.num_patches)()
+    if not (torch.equal(allv.tokens, base.tokens) and torch.equal(allv.logits, base.logits)):
+        raise AssertionError(f"visual_tokens={cfg.num_patches} differs from no pruning")
+    run_option(f"visual_tokens={VT_KEEP}", policy, lambda r: seq, visual_tokens=VT_KEEP)
+    log(f"options: visual_tokens={cfg.num_patches} gives tokens and logits bit-equal to no pruning; "
+        f"visual_tokens={VT_KEEP} prefill {rows[f'visual_tokens={VT_KEEP}']['prefill_ms']:.2f} ms against "
+        f"{rows['bf16 cache (the slice path)']['prefill_ms']:.2f} ms unpruned; cache "
+        f"{cache_gb(cfg, bs, total - cfg.num_patches + VT_KEEP, None):.4f} GB [{card}]")
+
+    # --- Jacobi drafts through HTTP: round 1 without drafts, round 2 sends
+    # each client's round-1 tokens back for the same frame and task
+    server = ActionServer(policy, host="127.0.0.1", port=0, max_batch=MAX_BATCH,
+                          max_wait_ms=500.0, drafts=True)
+    try:
+        server.batcher.warmup(frames[0])
+        server.start()
+        base_url = "http://%s:%d" % server.address
+        reset_launches()  # the Jacobi path's count starts here
+        r1 = concurrent_posts(base_url + "/act", frames, tasks)
+        l1 = dict(q4_matmul.launches_by_body)
+        h1 = get_json(base_url + "/healthz")["verify_passes"]
+        reset_launches()
+        r2 = concurrent_posts(base_url + "/act", frames, tasks, drafts=[r["tokens"] for r in r1])
+        l2 = dict(q4_matmul.launches_by_body)  # read right after the main path
+        h2 = get_json(base_url + "/healthz")["verify_passes"]
+    finally:
+        server.shutdown()
+    t1 = np.array([r["tokens"] for r in r1])
+    t2 = np.array([r["tokens"] for r in r2])
+    # /healthz sums the passes over all drafted batches: round 2's are the
+    # difference
+    p1 = h1["sum"]
+    p2, n2 = h2["sum"] - h1["sum"], h2["n"] - h1["n"]
+    log(f"options: Jacobi through HTTP, {bs} clients: round 1 (no draft) {h1['n']} batch(es), "
+        f"{p1} verify passes, B4 {l1}; round 2 (round-1 tokens as drafts) {n2} batch(es), "
+        f"{p2} verify passes ({p2 / max(n2, 1):.2f} a batch), B4 {l2}; round-2 tokens equal "
+        f"round 1's {np.array_equal(t1, t2)}; /healthz {h2}")
+    if not np.array_equal(t1, t2):
+        raise AssertionError("round-2 tokens differ from round 1's")
+    if n2 < 1 or p2 != n2:
+        raise AssertionError(f"round 2 ran {p2} verify passes over {n2} batches, not 1.0 a batch")
+    if l1 != {"mma": p1 * per_pass, "fma": 0} or l2 != {"mma": p2 * per_pass, "fma": 0}:
+        raise AssertionError(f"B4 launches {l1}, {l2} != passes x {per_pass}, all on the mma body")
+    # Jacobi and the sequential tail compute the same logits in another
+    # order, so a token may flip only where the sequential margin of its
+    # token over Jacobi's is within what two correct computations drift
+    # apart: 2x the largest |logit difference| between the kernel and plain
+    # tails (slice phase, this run). A wrong pass (rope, mask, cache slot)
+    # picks tokens far below the top, at margins of a few % of the logits.
+    flips, bound = first_flips(base, t1), 2 * sl["drift"]
+    log(f"options: zero-draft Jacobi tokens vs the sequential kernel tail: equal on "
+        f"{float((t1 == base_tok).mean()):.3f} of the positions; first differing positions "
+        f"(row, position, sequential margin of its token over Jacobi's) {flips}; bound {bound:.4g} "
+        f"(2x the kernel-vs-plain tail drift {sl['drift']:.4g})")
+    if any(m > bound for _, _, m in flips):
+        raise AssertionError(f"Jacobi tokens leave the sequential tail at a margin above {bound:.4g}: {flips}")
+    run_option("Jacobi, zero draft", policy, lambda r: r.verify_passes * per_pass,
+               draft_tokens=np.zeros((bs, 7), np.int32))
+    run_option("Jacobi, round-1 tokens as draft", policy, lambda r: r.verify_passes * per_pass,
+               draft_tokens=t1)
+    log(f"options: Jacobi tail with a correct draft {rows['Jacobi, round-1 tokens as draft']['tail_ms']:.2f} ms "
+        f"against the sequential tail {rows['bf16 cache (the slice path)']['tail_ms']:.2f} ms [{card}]")
+
+    # --- w8a8 against weight-only int8 on the same weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    w8a8 = load_policy(None, MODEL, quantize="w8a8", seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    int8 = VLAPolicy(w8a8.model.tree(), cfg, w8a8.tokenizer, w8a8.norm_stats, w8a8.unnorm_key,
+                     cooked_weights=True, quantize="int8", device="cuda")
+    log(f"options: {MODEL} w8a8 policy built in {time.perf_counter() - t:.1f} s; the int8 policy "
+        f"shares its weights (quantize='int8' of the same seed gives the same bytes)")
+    # the card's int8 x int8 -> int32 product (torch._int_mm) at a prefill
+    # projection's shape against the exact integer product (f64 sums of
+    # products below 2^53 are exact)
+    from roboticattack_torch.models.decode import _int8_matmul, _quantize_act
+
+    q_w = w8a8.model.tree()["llm"]["layers"]["q_w"][0]
+    gen = torch.Generator(device=q_w.device).manual_seed(SEED)
+    yq, _ = _quantize_act(torch.randn((bs, total - 7, q_w.shape[1]), generator=gen, device=q_w.device))
+    prod = _int8_matmul(yq, q_w)
+    exact = (yq.double() @ q_w.double().T).to(torch.int64)
+    log(f"options: w8a8 int8 product {list(yq.shape)} x {list(q_w.shape)}^T on the card equals the "
+        f"exact integer product: {torch.equal(prod.to(torch.int64), exact)}")
+    if not torch.equal(prod.to(torch.int64), exact):
+        raise AssertionError("torch._int_mm on the card differs from the exact integer product")
+    del yq, prod, exact
+    a8 = run_option("w8a8", w8a8, lambda r: 0)
+    w8 = run_option("int8 weight-only", int8, lambda r: 0)
+    ta, tw = a8.tokens.cpu().numpy(), w8.tokens.cpu().numpy()
+    la, lw = a8.logits[:, 0].float(), w8.logits[:, 0].float()
+    rel = ((la - lw).norm(dim=-1) / lw.norm(dim=-1)).max().item()
+    log(f"options: w8a8 vs int8 weight-only: token agreement {float((ta == tw).mean()):.3f} "
+        f"(first token {float((ta[:, 0] == tw[:, 0]).mean()):.3f}); prefill logits max rel diff "
+        f"{rel:.4g}; prefill {rows['w8a8']['prefill_ms']:.2f} vs {rows['int8 weight-only']['prefill_ms']:.2f} ms [{card}]")
+    del w8a8, int8, a8, w8
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"rows": rows, "jacobi_launches": {"round 1": l1, "round 2": l2}, "passes": (p1, p2)}
 
 
 def dummy_batches(bs: int, seed: int = SEED):
@@ -792,9 +1027,12 @@ def main() -> int:
 
     rows, group_err = phase_kernels(bw)
     res = phase_slice(card)
-    gc.collect()  # the int4 policy of the serving phase
+    opts = phase_options(res, card)
+    for key in ("policy", "base"):  # the int4 policy of the serving phases
+        del res[key]
+    gc.collect()
     torch.cuda.empty_cache()
-    log(f"freed the serving phase: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
+    log(f"freed the serving phases: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
     flash = phase_flash(bw, card)
     att = phase_attack(card)
 
@@ -811,10 +1049,8 @@ def main() -> int:
             "on_main_path": True,
         })
     for mode, (kname, replaces, body) in KERNELS.items():
-        at8 = [r for r in rows if r["mode"] == mode and r["m"] == 8]
-
-        def layer_sum(key):
-            return sum(r[key] * r["per_layer"] for r in at8)
+        def layer_sum(key, m=8):
+            return sum(r[key] * r["per_layer"] for r in rows if r["mode"] == mode and r["m"] == m)
 
         kernels.append({
             "name": kname, "route": "cuda", "source": SOURCE, "replaces": replaces,
@@ -831,6 +1067,20 @@ def main() -> int:
                                 f"32 and 64 ({'on the fma body' if mode == 'grouped' else 'on the mma body'})",
             "on_main_path": mode == "grouped",
         })
+        if mode == "grouped":
+            m56 = [r for r in rows if r["mode"] == mode and r["m"] == JACOBI_M]
+            kernels[-1].update({
+                "launches_by_path": {"slice (HTTP, sequential tail)": res["launches"][mode],
+                                     **{f"options Jacobi HTTP {k}": v["mma"] + v["fma"]
+                                        for k, v in opts["jacobi_launches"].items()}},
+                "jacobi_verify_passes": {"round 1": opts["passes"][0], "round 2": opts["passes"][1]},
+                "ms_m56": layer_sum("ms", JACOBI_M), "plain_ms_m56": layer_sum("plain_ms", JACOBI_M),
+                "bound_ms_m56": layer_sum("bound_ms", JACOBI_M),
+                "library_ms_m56": layer_sum("library_ms", JACOBI_M),
+                "max_abs_err_m56": max(r["max_abs_err"] for r in m56),
+                "at_m56": "the Jacobi pass at bs 8, y [8, 7, in]: one layer's 7 projections, "
+                          "summed per-launch times",
+            })
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -7,11 +7,15 @@ Smoke (tiny model, random weights, CPU):
   python -m roboticattack_torch.cli.serve --model vla-tiny --device cpu \
       --max_batch 4 --port 8000
 
+Smoke of the serving options (tiny model, CPU): Jacobi drafts, an int4 KV
+cache and visual-token pruning:
+  python -m roboticattack_torch.cli.serve --model vla-tiny --device cpu \
+      --drafts --kv_cache int4 --visual_tokens 8
+
 The flags are the JAX CLI's (roboticattack_tpu/cli/serve.py), with
 `--platform` replaced by `--device cuda|cpu`. Options whose code is not
-ported yet (--checkpoint, --kv_cache, --visual_tokens, --center_crop,
---drafts, --tp/--dp other than 1) raise NotImplementedError naming their
-ROADMAP.md item.
+ported yet (--checkpoint, --center_crop, --tp/--dp other than 1) raise
+NotImplementedError naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -51,7 +55,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dp", default=1, type=int)
     p.add_argument("--visual_tokens", default=None, type=int)
     p.add_argument("--drafts", action="store_true",
-                   help="Jacobi self-speculative decode (not ported yet)")
+                   help="Jacobi self-speculative decode: clients send the "
+                        "previous reply's 'tokens' as 'draft_tokens' and a "
+                        "correct draft runs the decode tail in one pass; "
+                        "replies carry 'tokens', /healthz adds verify-pass stats")
     p.add_argument("--no_warmup", action="store_true",
                    help="skip running every batch bucket once at startup")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -62,8 +69,6 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.tp != 1 or args.dp != 1:
         raise not_ported("--tp/--dp serving", "slice 3: TP and DP")
-    if args.drafts:
-        raise not_ported("--drafts", "slice 3: Jacobi drafts")
     import numpy as np
 
     from ..eval.policy import load_policy
@@ -79,7 +84,7 @@ def main(argv=None):
     )
     server = ActionServer(
         policy, host=args.host, port=args.port,
-        max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+        max_batch=args.max_batch, max_wait_ms=args.max_wait_ms, drafts=args.drafts,
     )
     if not args.no_warmup:
         size = policy.cfg.dino.image_size

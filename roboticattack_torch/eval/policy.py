@@ -22,6 +22,7 @@ from torch import nn
 from .. import not_ported
 from ..models.config import VLAConfig, get_config, torch_dtype
 from ..models.decode import (
+    KV_CACHE_MODES,
     DecodeResult,
     decode_layout_params,
     ensure_trailing_empty_token,
@@ -29,13 +30,15 @@ from ..models.decode import (
     unnormalize_actions,
 )
 from ..models.vlm import VLA
-from ..utils.constants import PAD_TOKEN_ID
+from ..utils.constants import ACTION_DIM, PAD_TOKEN_ID
 from ..utils.normalization import dual_normalize
 from ..utils.prompting import TextTokenizer, WordStubTokenizer
 from ..utils.quant_args import parse_quantize, resolve_quantize
 from .processing import eval_prompt, resize_bicubic_pil
 
 PROMPT_PAD = 64
+# the decode options a policy holds and `VLAPolicy.decode` can override per call
+DECODE_OPTIONS = ("kv_cache", "visual_tokens", "act_quant", "int4_kernel")
 
 
 def resolve_device(device) -> torch.device:
@@ -78,17 +81,19 @@ class VLAPolicy:
         or the nested dict of tensors in the JAX pytree layout.
 
         `quantize='int8'|'int4'|'int4:<gs>'`: weight-only quantization of the
-        LLM stack + lm_head/embed (models/quant.py). `int4_kernel=None`
-        resolves to "int4 weights and a CUDA device": the decode tail's
-        projections then run the CUDA dequant-matmul kernel."""
+        LLM stack + lm_head/embed (models/quant.py); `'w8a8'`: int8 weights
+        plus per-token int8 activations in the prefill's projections (the
+        tail stays weight-only). `int4_kernel=None` resolves to "int4
+        weights and a CUDA device": the decode tail's projections then run
+        the CUDA dequant-matmul kernel.
+
+        `kv_cache='int8'|'int4'` and `visual_tokens=k` reach every decode
+        (models/decode.py greedy_decode_actions)."""
         self.device = resolve_device(device)
         quant_mode, act_quant, quant_gs = resolve_quantize(quantize)
-        if act_quant is not None:
-            raise not_ported("quantize='w8a8'", "slice 3: w8a8")
-        if kv_cache is not None:
-            raise not_ported(f"kv_cache={kv_cache!r}", "slice 3: KV cache int8/int4")
-        if visual_tokens is not None:
-            raise not_ported("visual_tokens pruning", "slice 3: visual tokens")
+        if kv_cache not in KV_CACHE_MODES:
+            raise ValueError(f"kv_cache={kv_cache!r}; supported: None, 'int8', 'int4'")
+        self.kv_cache, self.visual_tokens, self.act_quant = kv_cache, visual_tokens, act_quant
         if center_crop:
             raise not_ported("center_crop", "slice 5: center crop")
         if int4_kernel is None:
@@ -134,8 +139,17 @@ class VLAPolicy:
         self.unnorm_key = unnorm_key
         self.prompt_pad = prompt_pad
         self._prompt_cache: Dict[str, tuple] = {}
-        # [N, 7] token ids of the most recent get_action_multi call
+        # [N, 7] token ids of the most recent get_action_multi call: the
+        # draft that draft_tokens="last" sends with the next call
         self.last_tokens: Optional[np.ndarray] = None
+        # Jacobi verification passes of the most recent decode (None after a
+        # sequential one; 1 = the draft was accepted whole)
+        self.last_verify_passes: Optional[int] = None
+
+    @property
+    def vocab_size(self) -> int:
+        """Rows of the embedding: a token id (a draft's too) lies below it."""
+        return self.cfg.llm.vocab_size
 
     def _tokenize(self, task_label: str):
         key = task_label
@@ -178,18 +192,37 @@ class VLAPolicy:
         mask = torch.from_numpy(np.concatenate([r[1] for r in rows], axis=0)).to(self.device)
         return ids, mask, pixels
 
-    def decode(self, images_u8: np.ndarray, task_labels: Sequence[str]) -> DecodeResult:
+    def decode(self, images_u8: np.ndarray, task_labels: Sequence[str], draft_tokens=None,
+               **options) -> DecodeResult:
         """One greedy decode of a mixed-task batch -> the DecodeResult
-        (tokens, normalized actions, logits) on the policy's device."""
-        ids, mask, pixels = self.prepare(images_u8, task_labels)
+        (tokens, normalized actions, logits or verify passes) on the
+        policy's device. `draft_tokens` [N, 7] runs the Jacobi tail;
+        `options` (DECODE_OPTIONS) override the policy's own for this call."""
+        return self.decode_inputs(self.prepare(images_u8, task_labels), draft_tokens, **options)
+
+    def decode_inputs(self, inputs, draft_tokens=None, num_steps: int = ACTION_DIM,
+                      **options) -> DecodeResult:
+        """`decode` on the (input_ids, attention_mask, pixel_values) that
+        `prepare` gave, so a caller can time the decode alone; `num_steps`
+        below 7 cuts the tail (1 = the prefill alone)."""
+        unknown = set(options) - set(DECODE_OPTIONS)
+        if unknown:
+            raise TypeError(f"unknown decode options {sorted(unknown)}; known: {DECODE_OPTIONS}")
+        opts = {k: options.get(k, getattr(self, k)) for k in DECODE_OPTIONS}
+        ids, mask, pixels = inputs
+        if draft_tokens is not None:
+            draft_tokens = torch.as_tensor(draft_tokens, dtype=torch.int32, device=self.device)
         with torch.inference_mode():
             return greedy_decode_actions(
-                self.model.tree(), self.cfg, ids, mask, pixels,
-                cooked_weights=True, int4_kernel=self.int4_kernel,
+                self.model.tree(), self.cfg, ids, mask, pixels, num_steps=num_steps,
+                cooked_weights=True, draft_tokens=draft_tokens, **opts,
             )
 
     def get_action(self, image_u8: np.ndarray, task_label: str, draft_tokens=None) -> np.ndarray:
-        """image_u8: uint8 [H, W, 3] frame -> the unnormalized 7-DoF action."""
+        """image_u8: uint8 [H, W, 3] frame -> the unnormalized 7-DoF action.
+        `draft_tokens`: a [7] token array or "last" (get_action_multi)."""
+        if draft_tokens is not None and not isinstance(draft_tokens, str):
+            draft_tokens = np.asarray(draft_tokens, np.int32).reshape(1, -1)
         return self.get_action_multi(image_u8[None], [task_label], draft_tokens=draft_tokens)[0]
 
     def get_action_batch(self, images_u8: np.ndarray, task_label: str, draft_tokens=None) -> np.ndarray:
@@ -207,10 +240,22 @@ class VLAPolicy:
     ) -> np.ndarray:
         """Mixed-task batched inference: [N, H, W, 3] uint8 frames with a task
         label per row -> [N, 7] unnormalized actions from one decode (the
-        coalescing primitive serving.DynamicBatcher builds on)."""
-        if draft_tokens is not None:
-            raise not_ported("Jacobi draft_tokens", "slice 3: Jacobi drafts")
-        res = self.decode(images_u8, task_labels)
+        coalescing primitive serving.DynamicBatcher builds on).
+
+        `draft_tokens`: [N, 7] token ids, or "last" for the previous call's
+        tokens, switch the tail to Jacobi verification passes (exact
+        greedy; a correct draft verifies in one pass). "last" on a cold
+        start or after a change of batch width gives a zero draft."""
+        if isinstance(draft_tokens, str):
+            if draft_tokens != "last":
+                raise ValueError(f"draft_tokens={draft_tokens!r}; use 'last' or an [N, 7] token array")
+            draft_tokens = (
+                self.last_tokens
+                if self.last_tokens is not None and self.last_tokens.shape[0] == len(images_u8)
+                else np.zeros((len(images_u8), 7), np.int32)
+            )
+        res = self.decode(images_u8, task_labels, draft_tokens=draft_tokens)
+        self.last_verify_passes = res.verify_passes
         self.last_tokens = res.tokens.cpu().numpy()
         normalized = res.actions.cpu().numpy().astype(np.float64)
         return np.stack([

@@ -10,6 +10,10 @@ so the device sees O(log max_batch) batch shapes; `warmup()` runs every
 bucket once before traffic. Padding rows replicate row 0 and their outputs
 are dropped.
 
+In drafts mode (`drafts=True`) every batch runs the policy's Jacobi tail:
+clients send the tokens of their previous reply as the next request's draft
+(`submit_full`), and rows without one get a zero draft.
+
 Threading model: one worker thread owns the policy and the device; callers
 block on `concurrent.futures.Future`s.
 """
@@ -20,13 +24,20 @@ import queue
 import threading
 import time
 from concurrent.futures import Future
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .. import not_ported
-
 _SENTINEL = object()
+
+
+class ActResult(NamedTuple):
+    """What submit_full() resolves to: the action and the greedy tokens that
+    produced it, which the client sends back as `draft_tokens` with its
+    next request."""
+
+    action: np.ndarray  # [7] unnormalized
+    tokens: Optional[np.ndarray]  # [7] int32 (None if the policy has no tokens)
 
 
 def _fail_future(fut: Future, exc: BaseException) -> None:
@@ -62,6 +73,12 @@ class DynamicBatcher:
                     while more arrive. The latency bound for a lone request
                     is ~max_wait_ms + one decode.
     buckets       : ascending batch shapes; default powers of two.
+    drafts        : run every batch through the policy's Jacobi tail
+                    (get_action_multi draft_tokens=...), with the drafts
+                    given to submit_full and zeros for requests without one.
+                    A constructor mode, so warmup() runs the path the worker
+                    will run. The policy then needs `vocab_size`: a draft id
+                    outside [0, vocab_size) is refused at submit time.
 
     Shutdown: `close()` stops new submissions, fails every request still in
     the queue with RuntimeError (the in-flight batch, if any, completes), and
@@ -76,9 +93,9 @@ class DynamicBatcher:
         buckets: Optional[Sequence[int]] = None,
         drafts: bool = False,
     ) -> None:
-        if drafts:
-            raise not_ported("Jacobi drafts", "slice 3: Jacobi drafts")
         self.policy = policy
+        self.drafts = bool(drafts)
+        self.vocab_size = int(policy.vocab_size) if self.drafts else None
         self.max_batch = int(max_batch)
         self.max_wait_s = float(max_wait_ms) / 1000.0
         self.buckets = tuple(sorted(buckets)) if buckets else default_buckets(
@@ -96,6 +113,8 @@ class DynamicBatcher:
         self._bucket_counts: Dict[int, int] = {b: 0 for b in self.buckets}
         # submit->resolve wall-clock of the last 1024 served requests
         self._latencies: List[float] = []
+        # Jacobi verification passes of the last 1024 drafted batches
+        self._verify_passes: List[int] = []
         self._closed = False
         self._worker = threading.Thread(
             target=self._run, name="vla-batcher", daemon=True
@@ -105,6 +124,34 @@ class DynamicBatcher:
     # ------------------------------------------------------------- client API
     def submit(self, image_u8: np.ndarray, task_label: str) -> Future:
         """Enqueue one request; returns a Future resolving to the [7] action."""
+        return self._submit(image_u8, task_label, None, False)
+
+    def submit_full(self, image_u8: np.ndarray, task_label: str, draft_tokens=None) -> Future:
+        """Like submit(), but the Future resolves to an ActResult (action and
+        tokens), and `draft_tokens` [7] from the client's previous reply
+        seeds the Jacobi tail (check_draft says what it must be)."""
+        if draft_tokens is not None:
+            draft_tokens = self.check_draft(draft_tokens)
+        return self._submit(image_u8, task_label, draft_tokens, True)
+
+    def check_draft(self, draft_tokens) -> np.ndarray:
+        """A client's draft as [7] int32 ids. ValueError unless the batcher
+        runs drafts and the draft is 7 integers in [0, vocab_size): a bad id
+        would fail the whole batch it lands in, on the card by poisoning the
+        CUDA context."""
+        if not self.drafts:
+            raise ValueError(
+                "draft_tokens needs DynamicBatcher(drafts=True): its warmup runs "
+                "the Jacobi path, a plain batcher's does not"
+            )
+        d = np.asarray(draft_tokens)
+        if d.shape != (7,) or d.dtype.kind not in "iu":
+            raise ValueError(f"draft_tokens must be 7 integer token ids, got {d.dtype} of shape {d.shape}")
+        if d.min() < 0 or d.max() >= self.vocab_size:
+            raise ValueError(f"draft_tokens hold ids outside [0, {self.vocab_size}): {d.tolist()}")
+        return d.astype(np.int32)
+
+    def _submit(self, image_u8, task_label, draft, wants_full) -> Future:
         fut: Future = Future()
         # the closed-check and the put are atomic vs close(): once close()
         # flips _closed under this lock, no request can slip in after its
@@ -112,7 +159,8 @@ class DynamicBatcher:
         with self._lock:
             if self._closed:
                 raise RuntimeError("DynamicBatcher is closed")
-            self._q.put((np.asarray(image_u8), str(task_label), fut, time.monotonic()))
+            self._q.put((np.asarray(image_u8), str(task_label), fut, time.monotonic(),
+                         draft, wants_full))
             self.stats["requests"] += 1
         return fut
 
@@ -124,9 +172,15 @@ class DynamicBatcher:
         return self.submit(image_u8, task_label).result(timeout=timeout)
 
     def warmup(self, image_u8: np.ndarray, task_label: str = "warmup") -> None:
-        """Run every bucket's batch shape once before traffic."""
+        """Run every bucket's batch shape once before traffic (in drafts
+        mode through the Jacobi tail, the path the worker runs)."""
         for b in self.buckets:
-            self.policy.get_action_multi(np.stack([image_u8] * b), [task_label] * b)
+            imgs = np.stack([image_u8] * b)
+            if self.drafts:
+                self.policy.get_action_multi(imgs, [task_label] * b,
+                                             draft_tokens=np.zeros((b, 7), np.int32))
+            else:
+                self.policy.get_action_multi(imgs, [task_label] * b)
 
     def bucket_counts(self) -> Dict[int, int]:
         with self._lock:
@@ -146,6 +200,16 @@ class DynamicBatcher:
 
         return {"p50_s": q(0.50), "p95_s": q(0.95), "p99_s": q(0.99),
                 "n": len(lat)}
+
+    def verify_pass_stats(self) -> Dict[str, float]:
+        """Mean/max/sum of the Jacobi verification passes over the last 1024
+        drafted batches (empty before any; a mean of 1.0 = every draft
+        accepted whole)."""
+        with self._lock:
+            vp = list(self._verify_passes)
+        if not vp:
+            return {}
+        return {"mean": round(sum(vp) / len(vp), 2), "max": max(vp), "sum": sum(vp), "n": len(vp)}
 
     def close(self, timeout: Optional[float] = None) -> None:
         """Stop accepting requests, fail everything still queued, stop the
@@ -218,20 +282,31 @@ class DynamicBatcher:
             tasks = [b[1] for b in batch]
             futures = [b[2] for b in batch]
             submit_ts = [b[3] for b in batch]
+            drafts = [b[4] for b in batch]
+            wants_full = [b[5] for b in batch]
             n = len(batch)
             bucket = self._bucket_for(n)
             # pad to the bucket shape with row-0 replicas (outputs dropped)
             for _ in range(bucket - n):
                 images.append(images[0])
                 tasks.append(tasks[0])
+                drafts.append(drafts[0])
             try:
-                actions = self.policy.get_action_multi(np.stack(images), tasks)
+                if self.drafts:
+                    # zeros for rows without a draft: bounded by the
+                    # sequential tail
+                    d = np.stack([np.zeros(7, np.int32) if x is None else x for x in drafts])
+                    actions = self.policy.get_action_multi(np.stack(images), tasks, draft_tokens=d)
+                else:
+                    actions = self.policy.get_action_multi(np.stack(images), tasks)
             except Exception as e:  # fail THIS batch; keep serving
                 with self._lock:
                     self.stats["errors"] += 1
                 for f in futures:
                     _fail_future(f, e)
                 continue
+            tokens = getattr(self.policy, "last_tokens", None)
+            passes = getattr(self.policy, "last_verify_passes", None)
             now = time.monotonic()
             with self._lock:
                 self.stats["batches"] += 1
@@ -239,8 +314,14 @@ class DynamicBatcher:
                 self._bucket_counts[bucket] += 1
                 self._latencies.extend(now - t for t in submit_ts)
                 del self._latencies[:-1024]
-            for f, a in zip(futures, actions[:n]):
+                if passes is not None:
+                    self._verify_passes.append(int(passes))
+                    del self._verify_passes[:-1024]
+            for i, (f, a) in enumerate(zip(futures, actions[:n])):
+                a = np.asarray(a)
+                if wants_full[i]:
+                    a = ActResult(action=a, tokens=None if tokens is None else np.asarray(tokens[i]))
                 try:
-                    f.set_result(np.asarray(a))
+                    f.set_result(a)
                 except Exception:  # never kill the worker
                     pass

@@ -9,11 +9,17 @@ Protocol (JSON over HTTP/1.1):
     {"task": "<instruction>",
      "image_b64": "<base64 of raw uint8 H*W*3 bytes>", "shape": [H, W, 3]}
     or {"task": ..., "image": <nested uint8 list [H][W][3]>}
-    -> 200 {"action": [7 floats]}   (unnormalized 7-DoF)
-    -> 400 {"error": ...} on malformed input (a "draft_tokens" field is
-       refused: Jacobi drafts are not ported yet), 500 on decode failure
+    optionally + "draft_tokens": [7 ints] (the previous reply's "tokens";
+    needs a drafts-enabled server: a correct draft runs the decode tail as
+    one Jacobi pass)
+    -> 200 {"action": [7 floats], "tokens": [7 ints]}   (unnormalized 7-DoF;
+       "tokens" on drafts-enabled servers: send it back next step)
+    -> 400 {"error": ...} on malformed input (also a draft sent to a server
+       without drafts, or one that is not 7 ids of the vocabulary), 500 on
+       decode failure
   GET /healthz
-    -> 200 {"ok": true, "stats": {...}, "buckets": {...}, "latency": {...}}
+    -> 200 {"ok": true, "stats": {...}, "buckets": {...}, "latency": {...},
+            "verify_passes": {...}}  (the last on drafts-enabled servers)
 
 Deliberately not here: TLS, auth, schema evolution — this is the in-cluster
 data plane; put a real gateway in front for anything public.
@@ -76,12 +82,15 @@ class _Handler(BaseHTTPRequestHandler):
     def do_GET(self):
         if self.path != "/healthz":
             return self._reply(404, {"error": "unknown path"})
-        self._reply(200, {
+        body = {
             "ok": True,
             "stats": dict(self.batcher.stats),
             "buckets": {str(k): v for k, v in self.batcher.bucket_counts().items()},
             "latency": self.batcher.latency_quantiles(),
-        })
+        }
+        if self.batcher.drafts:
+            body["verify_passes"] = self.batcher.verify_pass_stats()
+        self._reply(200, body)
 
     def do_POST(self):
         if self.path != "/act":
@@ -97,23 +106,28 @@ class _Handler(BaseHTTPRequestHandler):
             if not isinstance(task, str) or not task:
                 raise ValueError("task must be a non-empty string")
             image = _decode_image(payload)
-            if payload.get("draft_tokens") is not None:
-                raise ValueError(
-                    "this server was not started with drafts enabled "
-                    "(Jacobi drafts are not ported to PyTorch yet)"
-                )
+            draft = payload.get("draft_tokens")
+            if draft is not None:
+                if not self.batcher.drafts:
+                    raise ValueError("this server was not started with drafts enabled (cli.serve --drafts)")
+                draft = self.batcher.check_draft(draft)
         # TypeError covers malformed nested payloads (float shape entries,
         # non-subscriptable bodies) — a 400, not a dropped connection
         except (ValueError, KeyError, TypeError, json.JSONDecodeError) as e:
             return self._reply(400, {"error": str(e)})
-        fut = self.batcher.submit(image, task)
+        fut = (self.batcher.submit_full(image, task, draft)
+               if self.batcher.drafts else self.batcher.submit(image, task))
         try:
-            action = fut.result(timeout=self.act_timeout_s)
+            res = fut.result(timeout=self.act_timeout_s)
         except Exception as e:  # decode failure / shutdown / timeout
             # cancel so the worker drops the abandoned request at claim time
             fut.cancel()
             return self._reply(500, {"error": f"{type(e).__name__}: {e}"})
-        self._reply(200, {"action": [float(x) for x in action]})
+        action, tokens = (res.action, res.tokens) if self.batcher.drafts else (res, None)
+        body = {"action": [float(x) for x in action]}
+        if tokens is not None:
+            body["tokens"] = [int(t) for t in tokens]
+        self._reply(200, body)
 
 
 def make_server(

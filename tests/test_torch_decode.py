@@ -135,10 +135,6 @@ def test_decode_on_cpu_launches_no_kernel(cooked, inputs):
 
 @pytest.mark.parametrize("kwarg,value", [
     ("mesh", object()),
-    ("kv_cache", "int8"),
-    ("draft_tokens", torch.zeros((2, 7), dtype=torch.int32)),
-    ("visual_tokens", 8),
-    ("act_quant", "int8"),
 ])
 def test_unported_options_raise(cooked, inputs, kwarg, value):
     ids, mask, px = inputs

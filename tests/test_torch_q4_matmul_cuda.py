@@ -116,3 +116,22 @@ def test_cuda_mma_body_is_bit_deterministic(cuda, mode, gs, out_dim, in_dim, m):
     second = q4_matmul(y, w, scale, mode=mode)
     torch.cuda.synchronize()
     assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dim,in_dim", [(4096, 4096), (11008, 4096), (4096, 11008)])
+def test_cuda_grouped_kernel_at_the_jacobi_pass_shape(cuda, out_dim, in_dim):
+    """The Jacobi pass at bs=8 sends y [8, 7, in] (m = 56 rows, seven row
+    chunks of 8) through B4 on the mma body; within a couple of bf16 ulps
+    (2^-7 of the largest output) of the plain version."""
+    y, w, scale = _mk(out_dim, in_dim, 128, 56, cuda)
+    y = y.reshape(8, 7, in_dim)
+    before = dict(q4_matmul.launches_by_body)
+    got = q4_matmul(y, w, scale)
+    torch.cuda.synchronize()
+    assert q4_matmul.launches_by_body == dict(before, mma=before["mma"] + 1)
+    assert got.shape == (8, 7, out_dim) and got.dtype == torch.bfloat16
+    want = q4_matmul_plain(y, w, scale, "grouped", torch.bfloat16)
+    err = (got.float() - want.float()).abs().max().item()
+    assert torch.isfinite(got).all()
+    assert err <= 2**-7 * want.float().abs().max().item(), err
