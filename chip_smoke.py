@@ -40,7 +40,21 @@ Phases, each of which fails the run (non-zero exit, no result line) on error:
                one outer step's launches, the inner-step time, the device
                breakdown and peak memory; TMA (with the val and clean-filter
                steps) and UPA steps; one inner step's loss and patch gradient
-               through the kernels against the plain attention path.
+               through the kernels against the plain attention path;
+  7. checkpoint — the 7B from a checkpoint directory: the seeded bf16 weights
+               of `cli.attack --seed` written in the released OpenVLA
+               layout (three safetensors shards, the index, config.json,
+               dataset_statistics.json) under build/; the read rate onto the
+               card; `load_policy(dir, quantize="int4")` timed to the first
+               action; its bs 8 decode against an int4 policy built in
+               memory from the drawn weights (prefill logits bit-equal, the
+               tokens equal, 1344 B4 launches all on the mma body); 8 HTTP
+               clients of an ActionServer over it; every converted leaf
+               torch.equal to the weights drawn again; `cli.attack
+               --checkpoint dir` against the seeded run (TRAIN_loss
+               bit-equal, B1/B2 launches); then one forward with labels of
+               the phi-2+3b zoo entry (CLIP ViT-L/336 + Phi-2, random bf16
+               weights; no kernel: Phi runs the chunked attention).
 Then one JSON line of per-kernel numbers, the card line, and the result line.
 
 Imports nothing of JAX or of the JAX package.
@@ -56,6 +70,7 @@ import math
 import os
 import re
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -71,9 +86,10 @@ import torch.nn.functional as F
 from roboticattack_torch.attacks import engine
 from roboticattack_torch.cli import attack as attack_cli
 from roboticattack_torch.data import batch_iterator, dummy_frame_iterator
-from roboticattack_torch.eval.policy import load_policy
-from roboticattack_torch.models import get_config
-from roboticattack_torch.models.vlm import init_vla_params
+from roboticattack_torch.eval.policy import VLAPolicy, load_policy
+from roboticattack_torch.models import build_config, convert, get_config, safetensors_io
+from roboticattack_torch.models.convert import LLAMA_LAYER_NAMES, VIT_BLOCK_NAMES
+from roboticattack_torch.models.vlm import init_vla_params, param_count, vla_forward
 from roboticattack_torch.ops import flash_attention as fa
 from roboticattack_torch.ops import kernel_build
 from roboticattack_torch.ops.attention import causal_bias, padding_bias
@@ -84,6 +100,7 @@ from roboticattack_torch.ops.q4_matmul import (
     reset_launches,
 )
 from roboticattack_torch.serving.http import ActionServer
+from roboticattack_torch.utils.constants import IGNORE_INDEX
 from roboticattack_torch.utils.labels import build_tma_target_tokens
 from roboticattack_torch.utils.prompting import WordStubTokenizer
 
@@ -1005,6 +1022,343 @@ def phase_attack(card: str) -> dict:
             "rel": rel, "cos": cos}
 
 
+# ------------------------------------------------------------------ checkpoint
+# the dataset statistics of the exported checkpoint (one key, as a finetune's)
+CKPT_STATS = {"bridge_orig": {"action": {"q01": [-0.5] * 7, "q99": [0.5] * 7,
+                                         "mask": [True] * 6 + [False]}}}
+CKPT_SHARDS = 3
+ST_DTYPE_NAMES = {dtype: name for name, dtype in safetensors_io.DTYPES.items()}
+
+
+def write_safetensors(path: str, tensors: dict) -> int:
+    """Write {name: tensor} (on any device) as one safetensors file, one
+    tensor at a time: the 8-byte header length, the JSON header padded to 8
+    bytes, the raw little-endian bytes. Returns the bytes written."""
+    header, end = {"__metadata__": {"format": "pt"}}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": ST_DTYPE_NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [end, end + n]}
+        end += n
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy())
+    return 8 + len(blob) + end
+
+
+def hf_state(params: dict, cfg) -> dict:
+    """The inverse of models/convert.py: a parameter tree -> the released
+    OpenVLA checkpoint's {HF name: tensor}, views where they can be (torch
+    [out, in] linears). Each tower also gets its dead final block (zeros)
+    and final norm, and a cls tower's pos_embed a cls row of zeros: the
+    converter must skip the first two and fold the third (adding zero is
+    exact)."""
+    sd = {}
+    towers = [("dino", cfg.dino, "vision_backbone.featurizer.")]
+    if cfg.siglip is not None:
+        towers.append(("siglip", cfg.siglip, "vision_backbone.fused_featurizer."))
+    for key, vcfg, pre in towers:
+        p = params["vision"][key]
+        kernel = p["patch_embed"]["kernel"]
+        d, ps = kernel.shape[1], vcfg.patch_size
+        sd[pre + "patch_embed.proj.weight"] = kernel.reshape(ps, ps, 3, d).permute(3, 2, 0, 1)
+        if "bias" in p["patch_embed"]:
+            sd[pre + "patch_embed.proj.bias"] = p["patch_embed"]["bias"]
+        pos = p["pos_embed"]
+        if vcfg.use_cls_token:
+            pos = torch.cat([torch.zeros_like(pos[:1]), pos])
+        sd[pre + "pos_embed"] = pos[None]
+        if vcfg.use_cls_token:
+            sd[pre + "cls_token"] = p["cls_token"][None]
+        if vcfg.num_reg_tokens:
+            sd[pre + "reg_token"] = p["reg_tokens"][None]
+        if vcfg.pre_norm:
+            sd[pre + "norm_pre.weight"] = p["norm_pre"]["scale"]
+            sd[pre + "norm_pre.bias"] = p["norm_pre"]["bias"]
+        blocks = p["blocks"]
+        names = dict(VIT_BLOCK_NAMES)
+        if vcfg.use_layerscale:
+            names.update(ls1="ls1.scale_factor", ls2="ls2.scale_factor")
+        for i in range(vcfg.depth):
+            for k, name in names.items():
+                w = blocks[k][i] if i < vcfg.tap_layer else torch.zeros_like(blocks[k][0])
+                sd[f"{pre}blocks.{i}.{name}"] = w.T if k.endswith("_w") else w
+        sd[pre + "norm.weight"] = torch.ones_like(blocks["ln1_scale"][0])
+        sd[pre + "norm.bias"] = torch.zeros_like(blocks["ln1_bias"][0])
+    for k, t in params["projector"].items():  # fc1_w -> projector.fc1.weight
+        layer, kind = k.split("_")
+        sd[f"projector.{layer}.{'weight' if kind == 'w' else 'bias'}"] = t.T if kind == "w" else t
+    llm, pre = params["llm"], "language_model."
+    sd[pre + "model.embed_tokens.weight"] = llm["embed"]
+    for i in range(cfg.llm.num_layers):
+        for k, name in LLAMA_LAYER_NAMES.items():
+            w = llm["layers"][k][i]
+            sd[f"{pre}model.layers.{i}.{name}"] = w.T if k.endswith("_w") else w
+    sd[pre + "model.norm.weight"] = llm["norm"]
+    sd[pre + "lm_head.weight"] = llm["lm_head"].T
+    return sd
+
+
+def export_checkpoint(params: dict, cfg, path: str, model_id: str, stats: dict,
+                      shards: int = CKPT_SHARDS) -> int:
+    """Write `params` to `path` in the released OpenVLA layout: `shards`
+    `model-0000k-of-0000n.safetensors` files split by bytes,
+    `model.safetensors.index.json`, `config.json` naming `model_id`, and
+    `dataset_statistics.json`. Raises before writing unless the disk holds
+    the tensors' bytes with a third to spare. Returns the bytes of the
+    shards."""
+    sd = hf_state(params, cfg)
+    total = sum(t.numel() * t.element_size() for t in sd.values())
+    free = shutil.disk_usage(path).free
+    if free < total * 4 // 3:
+        raise RuntimeError(f"{free / 1e9:.1f} GB free under {path}; the checkpoint needs "
+                           f"{total / 1e9:.1f} GB with a third to spare")
+    parts, seen = [{} for _ in range(shards)], 0
+    for name, t in sd.items():
+        parts[min(shards - 1, seen * shards // total)][name] = t
+        seen += t.numel() * t.element_size()
+    written, weight_map = 0, {}
+    for k, part in enumerate(parts):
+        fname = f"model-{k + 1:05d}-of-{shards:05d}.safetensors"
+        written += write_safetensors(os.path.join(path, fname), part)
+        weight_map.update(dict.fromkeys(part, fname))
+    blobs = {
+        "model.safetensors.index.json": {"metadata": {"total_size": total}, "weight_map": weight_map},
+        "config.json": {"model_id": model_id, "_name_or_path": f"openvla/{model_id}"},
+        "dataset_statistics.json": stats,
+    }
+    for fname, blob in blobs.items():
+        with open(os.path.join(path, fname), "w") as f:
+            json.dump(blob, f)
+    return written
+
+
+def check_tree_equal(got: dict, want: dict, prefix: str = "") -> int:
+    """Raise unless two parameter trees have the same keys and every leaf is
+    torch.equal (dtype and shape included); returns the leaf count."""
+    if set(got) != set(want):
+        raise AssertionError(f"{prefix or 'tree'}: keys {sorted(got)} != {sorted(want)}")
+    n = 0
+    for k, w in want.items():
+        g = got[k]
+        if isinstance(w, dict):
+            n += check_tree_equal(g, w, f"{prefix}{k}.")
+        elif g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+            raise AssertionError(f"{prefix}{k}: {g.dtype} {tuple(g.shape)} differs from the "
+                                 f"drawn {w.dtype} {tuple(w.shape)}")
+        else:
+            n += 1
+    return n
+
+
+def attack_losses(argv: list, out_dir: str) -> tuple:
+    """`cli.attack.main(argv)` in-process: (TRAIN_loss per step, B1/B2
+    launches of the run, seconds)."""
+    fa.reset_launches()  # the main path's count starts here
+    t = time.perf_counter()
+    attack_cli.main(argv + ["--output", out_dir])
+    torch.cuda.synchronize()
+    launches = dict(fa.flash_attention.launches)  # read right after the main path
+    secs = time.perf_counter() - t
+    lines = [json.loads(ln) for ln in open(os.path.join(out_dir, "run-metrics.jsonl"))]
+    return [ln["TRAIN_loss"] for ln in lines if "TRAIN_loss" in ln], launches, secs
+
+
+def phase_checkpoint(card: str) -> dict:
+    """The 7B from a checkpoint directory, through load_policy and
+    `cli.attack --checkpoint`, against the weights it was written from."""
+    cfg = get_config(MODEL)
+    layers = cfg.llm.num_layers
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_checkpoint")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out = {}
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        params = init_vla_params(torch.Generator(device=DEVICE).manual_seed(SEED), cfg)
+        t = time.perf_counter()
+        nbytes = export_checkpoint(params, cfg, root, MODEL, CKPT_STATS)
+        write_s = time.perf_counter() - t
+        log(f"checkpoint: wrote {MODEL} (seeded random bf16 weights, seed {SEED}) as {CKPT_SHARDS} "
+            f"shards + index + config.json + dataset_statistics.json: {nbytes} bytes in "
+            f"{write_s:.2f} s ({nbytes / write_s / 1e9:.2f} GB/s, card -> host -> file) [{card}]")
+
+        # the reference: an int4 policy built in memory from the drawn weights
+        ref = VLAPolicy(params, cfg, WordStubTokenizer(), CKPT_STATS, quantize="int4", device=DEVICE)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t = time.perf_counter()
+        moved = 0
+        for v in safetensors_io.read_state_dict(root).values():
+            moved += v.to(DEVICE).numel() * v.element_size()
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t
+        log(f"checkpoint: read every tensor of the files onto the card once: {moved} bytes in "
+            f"{read_s:.2f} s = {moved / read_s / 1e9:.2f} GB/s (file map -> card; the files "
+            f"were just written, so mostly from the page cache) [{card}]")
+
+        # load as a user would, timing the conversion inside the same call
+        convert_s = []
+        real = convert.load_checkpoint_dir
+
+        def timed_convert(*a, **k):
+            t = time.perf_counter()
+            tree = real(*a, **k)
+            torch.cuda.synchronize()
+            convert_s.append(time.perf_counter() - t)
+            return tree
+
+        rng = np.random.default_rng(SEED)
+        size = cfg.dino.image_size
+        frames = rng.integers(0, 256, (N_REQUESTS, size, size, 3), dtype=np.uint8)
+        tasks = [f"put the {c} cup on plate {i}" for i, c in
+                 enumerate(["red", "green", "blue", "yellow", "white", "black", "orange", "purple"])]
+        convert.load_checkpoint_dir = timed_convert
+        try:
+            t0 = time.perf_counter()
+            policy = load_policy(root, MODEL, quantize="int4", device=DEVICE)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            first = policy.get_action(frames[0], tasks[0])
+            first_s = time.perf_counter() - t0
+        finally:
+            convert.load_checkpoint_dir = real
+        log(f"checkpoint: load_policy({os.path.basename(root)}, {MODEL!r}, quantize='int4', "
+            f"device='cuda') in {load_s:.2f} s: conversion on the card {convert_s[0]:.2f} s, "
+            f"policy build (cast, stats, tokenizer, cook, int4) {load_s - convert_s[0]:.2f} s; "
+            f"load start -> first action {first_s:.2f} s; action {np.round(first, 4).tolist()} [{card}]")
+        if not (policy.int4_kernel and np.all(np.isfinite(first))):
+            raise AssertionError(f"loaded policy: int4_kernel {policy.int4_kernel}, action {first}")
+
+        want = ref.decode(frames, tasks)
+        reset_launches()  # the main path's count starts here
+        got = policy.decode(frames, tasks)
+        torch.cuda.synchronize()
+        launches, by_body = dict(q4_matmul.launches), dict(q4_matmul.launches_by_body)
+        per_decode = 6 * layers * 7
+        prefill_equal = torch.equal(got.logits[:, 0], want.logits[:, 0])
+        tokens_equal = torch.equal(got.tokens, want.tokens)
+        log(f"checkpoint: bs={N_REQUESTS} decode, loaded policy vs the in-memory int4 policy of the "
+            f"drawn weights: prefill logits bit-equal {prefill_equal}, 7 tokens equal {tokens_equal}, "
+            f"all logits bit-equal {torch.equal(got.logits, want.logits)}; B4 launches {launches}, by "
+            f"body {by_body} (expected {per_decode} = 6 steps x {layers} layers x 7, all mma)")
+        if not (prefill_equal and tokens_equal):
+            raise AssertionError("the loaded policy decodes differently from the drawn weights'")
+        if launches["grouped"] != per_decode or by_body != {"mma": per_decode, "fma": 0}:
+            raise AssertionError(f"B4 launches {launches} by body {by_body} != {per_decode} mma")
+        out["decode_launches"] = launches["grouped"]
+        del ref, want, got
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        server = ActionServer(policy, host="127.0.0.1", port=0, max_batch=MAX_BATCH,
+                              max_wait_ms=500.0)
+        try:
+            server.start()
+            host, port = server.address
+            reset_launches()
+            t = time.perf_counter()
+            replies = concurrent_posts(f"http://{host}:{port}/act", frames, tasks)
+            http_s = time.perf_counter() - t
+            http_launches = dict(q4_matmul.launches)
+        finally:
+            server.shutdown()
+        log(f"checkpoint: {len(replies)} concurrent POST /act to an ActionServer over the loaded "
+            f"policy answered 200 with 7 finite actions each in {http_s:.3f} s; B4 launches "
+            f"{http_launches}; first reply {np.round(replies[0]['action'], 4).tolist()}")
+        out["http_launches"] = http_launches["grouped"]
+        del policy, server
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t = time.perf_counter()
+        tree = convert.load_checkpoint_dir(root, cfg, device=DEVICE)
+        torch.cuda.synchronize()
+        convert2_s = time.perf_counter() - t
+        drawn = init_vla_params(torch.Generator(device=DEVICE).manual_seed(SEED), cfg)
+        n_leaves = check_tree_equal(tree, drawn)
+        log(f"checkpoint: load_checkpoint_dir(..., device='cuda') in {convert2_s:.2f} s: all "
+            f"{n_leaves} leaves torch.equal to the weights drawn again from seed {SEED}")
+        del tree, drawn
+        gc.collect()
+        torch.cuda.empty_cache()
+        peak_load = torch.cuda.max_memory_allocated() / 2**30
+        log(f"checkpoint: peak torch.cuda.max_memory_allocated over write, load, serve and the leaf "
+            f"check = {peak_load:.2f} GiB [{card}]")
+
+        # attack from the checkpoint against the seeded run
+        argv = ["--attack", "uada", "--model", MODEL, "--dataset", "dummy", "--iter", "1",
+                "--innerLoop", "1", "--bs", str(ATTACK_BS), "--pad_to", str(PAD_TO), "--warmup", "0",
+                "--eval_every", "1", "--eval_batches", "1", "--seed", str(SEED), "--device", DEVICE]
+        want_fa = {"fwd": 2 * layers + layers, "bwd": layers}
+        runs = {}
+        for tag, extra in (("--checkpoint", ["--checkpoint", root]), ("seeded", [])):
+            run_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_attack_")
+            try:
+                torch.cuda.reset_peak_memory_stats()
+                losses, fl, secs = attack_losses(argv + extra, run_dir)
+                runs[tag] = (losses, fl)
+            finally:
+                shutil.rmtree(run_dir, ignore_errors=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+            log(f"checkpoint: attack CLI ({tag}) UADA bs {ATTACK_BS}, 1 step x 1 inner: TRAIN_loss "
+                f"{losses!r} in {secs:.1f} s; B1/B2 launches {fl} (expected {want_fa}: 2 x {layers} "
+                f"B1 with remat and {layers} B2 a inner step, {layers} B1 for the one val forward); "
+                f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+            if fl != want_fa or len(losses) != 1 or not np.all(np.isfinite(losses)):
+                raise AssertionError(f"attack run {tag}: losses {losses}, launches {fl}")
+        if runs["--checkpoint"][0] != runs["seeded"][0]:
+            raise AssertionError(f"--checkpoint TRAIN_loss {runs['--checkpoint'][0]} != seeded "
+                                 f"{runs['seeded'][0]}")
+        log("checkpoint: the --checkpoint run's TRAIN_loss is bit-equal to the seeded run's")
+        out["attack_launches"] = runs["--checkpoint"][1]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # Phi-2 on the card: the CLIP ViT-L/336 + Phi-2 zoo entry, one forward
+    pcfg = build_config("phi-2+3b")
+    torch.cuda.reset_peak_memory_stats()
+    pparams = init_vla_params(torch.Generator(device=DEVICE).manual_seed(SEED), pcfg)
+    rng = np.random.default_rng(SEED)
+    bs, text = 2, PAD_TO
+    ids = torch.as_tensor(rng.integers(3, pcfg.llm.vocab_size, (bs, text)), device=DEVICE)
+    mask = torch.ones_like(ids)
+    labels = ids.clone()
+    labels[:, 0] = IGNORE_INDEX
+    size = pcfg.dino.image_size
+    pixels = torch.as_tensor(rng.standard_normal((bs, 1, size, size, 3)), dtype=torch.bfloat16,
+                             device=DEVICE)
+    times = []
+    with torch.no_grad():
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = vla_forward(pparams, pcfg, ids, mask, pixels, labels)
+            ce = res.loss.item()
+            times.append((time.perf_counter() - t) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ln_v = math.log(pcfg.llm.vocab_size)
+    log(f"checkpoint: phi-2+3b ({pcfg.dino.image_size}px CLIP ViT-L + Phi-2, random bf16 weights, "
+        f"{param_count(pparams) / 1e9:.3f} B params) "
+        f"vla_forward with labels at bs {bs}, text {text}: CE {ce:.5f} (ln {pcfg.llm.vocab_size} = "
+        f"{ln_v:.5f}); logits {tuple(res.logits.shape)}; forward ms {[round(x, 2) for x in times]} "
+        f"(first, second); peak {peak:.2f} GiB [{card}]")
+    if not (math.isfinite(ce) and abs(ce - ln_v) < 2.0):
+        raise AssertionError(f"Phi-2 CE {ce} not finite or not near ln V = {ln_v}")
+    del pparams, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(phi_ce=ce, phi_ms=times[-1], phi_peak_gib=peak)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA card",
@@ -1035,6 +1389,7 @@ def main() -> int:
     log(f"freed the serving phases: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
     flash = phase_flash(bw, card)
     att = phase_attack(card)
+    ckpt = phase_checkpoint(card)
 
     kernels = []
     for kind, (kname, replaces) in FLASH_KERNELS.items():
@@ -1042,6 +1397,9 @@ def main() -> int:
         kernels.append({
             "name": kname, "route": "cuda", "source": FLASH_SOURCE, "replaces": replaces,
             "launches": att["launches"][kind], "max_abs_err": flash["errs"][kind],
+            "launches_by_path": {"attack CLI (seeded weights)": att["launches"][kind],
+                                 "attack CLI --checkpoint (1 step x 1 inner + 1 val)":
+                                     ckpt["attack_launches"][kind]},
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "at": f"[{ATTACK_BS}, 32, {256 + PAD_TO}, 128] bf16 with a dummy batch's causal + "
@@ -1071,6 +1429,9 @@ def main() -> int:
             m56 = [r for r in rows if r["mode"] == mode and r["m"] == JACOBI_M]
             kernels[-1].update({
                 "launches_by_path": {"slice (HTTP, sequential tail)": res["launches"][mode],
+                                     "checkpoint (loaded policy, one bs 8 decode)":
+                                         ckpt["decode_launches"],
+                                     "checkpoint (HTTP over the loaded policy)": ckpt["http_launches"],
                                      **{f"options Jacobi HTTP {k}": v["mma"] + v["fma"]
                                         for k, v in opts["jacobi_launches"].items()}},
                 "jacobi_verify_passes": {"round 1": opts["passes"][0], "round 2": opts["passes"][1]},

@@ -6,11 +6,15 @@ Examples:
       --dataset dummy --iter 3 --innerLoop 2 --bs 8 --pad_to 32
   python -m roboticattack_torch.cli.attack --attack tma --maskidx 6 \\
       --model vla-tiny --device cpu --dataset dummy --iter 3 --innerLoop 2 --bs 2
+  python -m roboticattack_torch.cli.attack --attack uada --model openvla-7b \\
+      --checkpoint /path/to/openvla-7b --dataset dummy --iter 3 --innerLoop 2
 
-Weights are random, drawn from --seed on the device. --checkpoint, any
---dataset but dummy (with --file_layer, --stats_json, --data_dir),
---data_parallel / --ddp_semantics exact and --profile raise: they are not
-ported yet (ROADMAP.md queue A).
+Weights come from --checkpoint (a local HF OpenVLA checkpoint directory,
+converted on the device; the dummy batches then take its tokenizer), else
+they are random, drawn from --seed on the device. Any --dataset but dummy
+(with --file_layer, --stats_json, --data_dir), --data_parallel /
+--ddp_semantics exact and --profile raise: they are not ported yet
+(ROADMAP.md queue A).
 """
 
 from __future__ import annotations
@@ -66,7 +70,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model", default=None, type=str,
                    help="config name (e.g. openvla-7b, vla-tiny); inferred from --dataset if unset")
     p.add_argument("--checkpoint", default=None, type=str,
-                   help="local HF OpenVLA checkpoint dir (not ported)")
+                   help="local HF OpenVLA checkpoint dir (safetensors shards)")
     p.add_argument("--data_parallel", type=str2bool, default=False,
                    help="data-parallel attack over the local devices (not ported)")
     p.add_argument("--file_layer", default="tf", choices=["tf", "tfrecord", "native"],
@@ -109,8 +113,6 @@ def resolve_objective(args) -> str:
 
 def check_ported(args) -> None:
     """Raise for every option whose code is not ported yet."""
-    if args.checkpoint:
-        raise not_ported("--checkpoint (HF checkpoint loading)", "slice 4: checkpoints")
     if args.dataset != "dummy":  # the dummy source reads no files: --file_layer does not apply
         raise not_ported(f"--dataset {args.dataset} / --file_layer {args.file_layer} (RLDS data)",
                          "slice 6: data")
@@ -121,11 +123,12 @@ def check_ported(args) -> None:
 
 
 def make_data(args, cfg):
-    """Train/val batch iterators of the dummy source (numpy batches)."""
+    """Train/val batch iterators of the dummy source (numpy batches),
+    tokenized with the checkpoint's tokenizer when there is one."""
     from ..data import batch_iterator, dummy_frame_iterator
-    from ..utils.prompting import WordStubTokenizer
+    from ..utils.prompting import tokenizer_from_checkpoint
 
-    tok = WordStubTokenizer()
+    tok = tokenizer_from_checkpoint(args.checkpoint)
     image_size = cfg.dino.image_size
     train = batch_iterator(dummy_frame_iterator(tok, image_size=image_size, seed=args.seed),
                            args.bs, pad_to=args.pad_to)
@@ -141,9 +144,11 @@ def main(argv=None):
     import torch
 
     from ..attacks.attacker import AttackConfig, OpenVLAAttacker
-    from ..eval.policy import resolve_device
     from ..models import get_config
+    from ..models.config import torch_dtype
+    from ..models.convert import cast_tree, load_checkpoint_dir
     from ..models.vlm import init_vla_params
+    from ..utils.device import resolve_device
     from ..utils.tracking import Tracker
 
     device = resolve_device(args.device)
@@ -151,6 +156,8 @@ def main(argv=None):
     model_name = args.model or dataset_to_model(args.dataset)
     cfg = get_config(model_name)
     objective = resolve_objective(args)
+    if args.checkpoint:  # before the run dir: a missing checkpoint leaves nothing behind
+        params = cast_tree(load_checkpoint_dir(args.checkpoint, cfg, device), torch_dtype(cfg))
     out_dir = args.output or os.path.join(args.server, "run", objective, exp_id)
     os.makedirs(out_dir, exist_ok=True)
 
@@ -168,9 +175,10 @@ def main(argv=None):
                     attack_target=args.maskidx, accumulate_steps=args.accumulate),
     )
     print(f"exp_id:{exp_id}\nrun dir: {out_dir}\nmodel: {model_name} ({cfg.name}) on {device}")
-    if cfg.name.startswith("openvla"):
-        print("WARNING: no --checkpoint given; using random weights (smoke mode)")
-    params = init_vla_params(torch.Generator(device=device).manual_seed(args.seed), cfg)
+    if not args.checkpoint:
+        if cfg.name.startswith("openvla"):
+            print("WARNING: no --checkpoint given; using random weights (smoke mode)")
+        params = init_vla_params(torch.Generator(device=device).manual_seed(args.seed), cfg)
 
     attack = AttackConfig(
         objective=objective,

@@ -3,6 +3,11 @@
   python -m roboticattack_torch.cli.serve --model openvla-7b \
       --quantize int4 --max_batch 8 --port 8000
 
+From a local HF OpenVLA checkpoint directory (safetensors shards,
+dataset_statistics.json, and tokenizer files where it ships them):
+  python -m roboticattack_torch.cli.serve --checkpoint /path/to/openvla-7b \
+      --model openvla-7b --quantize int4 --unnorm_key bridge_orig
+
 Smoke (tiny model, random weights, CPU):
   python -m roboticattack_torch.cli.serve --model vla-tiny --device cpu \
       --max_batch 4 --port 8000
@@ -14,7 +19,7 @@ cache and visual-token pruning:
 
 The flags are the JAX CLI's (roboticattack_tpu/cli/serve.py), with
 `--platform` replaced by `--device cuda|cpu`. Options whose code is not
-ported yet (--checkpoint, --center_crop, --tp/--dp other than 1) raise
+ported yet (--center_crop, --tp/--dp other than 1) raise
 NotImplementedError naming their ROADMAP.md item.
 """
 

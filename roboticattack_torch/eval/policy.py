@@ -12,7 +12,6 @@ the CPU on their own.
 
 from __future__ import annotations
 
-import sys
 from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
@@ -31,26 +30,15 @@ from ..models.decode import (
 )
 from ..models.vlm import VLA
 from ..utils.constants import ACTION_DIM, PAD_TOKEN_ID
+from ..utils.device import resolve_device
 from ..utils.normalization import dual_normalize
-from ..utils.prompting import TextTokenizer, WordStubTokenizer
+from ..utils.prompting import TextTokenizer, tokenizer_from_checkpoint
 from ..utils.quant_args import parse_quantize, resolve_quantize
 from .processing import eval_prompt, resize_bicubic_pil
 
 PROMPT_PAD = 64
 # the decode options a policy holds and `VLAPolicy.decode` can override per call
 DECODE_OPTIONS = ("kv_cache", "visual_tokens", "act_quant", "int4_kernel")
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on. A CUDA device without a GPU
-    raises: the CPU is used only when the caller asks for it."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available. The port runs on a CUDA device; pass "
-            "device='cpu' explicitly for the plain CPU path (tests, smoke runs)."
-        )
-    return dev
 
 
 def _to_device(tree: Mapping, device: torch.device) -> Dict:
@@ -275,25 +263,50 @@ def load_policy(
     int4_kernel: Optional[bool] = None,
     device="cuda",
 ) -> VLAPolicy:
-    """A policy with random weights drawn from `seed` on `device` (the only
-    source of weights in this slice: HF checkpoint conversion is not ported)."""
-    parse_quantize(quantize)  # reject a typo'd mode before building the model
+    """A policy on `device` from a local HF checkpoint directory: its
+    weights converted on the device and cast to the config's dtype, its
+    dataset statistics and its tokenizer (WordStubTokenizer when it ships
+    none). Without a checkpoint, random weights drawn from `seed`. A missing
+    directory, shard or tensor raises; nothing falls back to random weights."""
+    parse_quantize(quantize)  # reject a typo'd mode before the 15 GB load
     dev = resolve_device(device)
-    if checkpoint is not None:
-        raise not_ported("loading an HF checkpoint", "slice 4: checkpoints")
-    from ..models.vlm import init_vla_params
-
     cfg = get_config(model_name)
-    print("[policy] WARNING: using WordStubTokenizer (no Llama tokenizer available)",
-          file=sys.stderr)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    norm_stats = {
-        "synthetic": {"action": {"q01": [-1.0] * 7, "q99": [1.0] * 7,
-                                  "mask": [True] * 6 + [False]}}
-    }
+    if checkpoint:
+        from ..models.convert import cast_tree, load_checkpoint_dir, load_norm_stats
+
+        params = cast_tree(load_checkpoint_dir(checkpoint, cfg, dev), torch_dtype(cfg))
+        norm_stats = load_norm_stats(checkpoint)
+        tokenizer = tokenizer_from_checkpoint(checkpoint)
+    else:
+        from ..models.vlm import init_vla_params
+
+        tokenizer = tokenizer_from_checkpoint(None)
+        params = init_vla_params(torch.Generator(device=dev).manual_seed(seed), cfg)
+        norm_stats = {
+            "synthetic": {"action": {"q01": [-1.0] * 7, "q99": [1.0] * 7,
+                                      "mask": [True] * 6 + [False]}}
+        }
+        unnorm_key = unnorm_key or "synthetic"
     return VLAPolicy(
-        init_vla_params(gen, cfg), cfg, WordStubTokenizer(), norm_stats,
-        unnorm_key or "synthetic", center_crop, quantize=quantize,
-        kv_cache=kv_cache, visual_tokens=visual_tokens,
-        int4_kernel=int4_kernel, device=dev,
+        params, cfg, tokenizer, norm_stats, unnorm_key, center_crop, quantize=quantize,
+        kv_cache=kv_cache, visual_tokens=visual_tokens, int4_kernel=int4_kernel, device=dev,
     )
+
+
+# --- the reference's dispatch shims (experiments/robot/robot_utils.py:40-74) ---
+
+def get_model(cfg_or_checkpoint, model_family: str = "openvla", **kwargs) -> VLAPolicy:
+    """`get_model`: a checkpoint path (or a config object with
+    `.pretrained_checkpoint`) -> a loaded policy."""
+    checkpoint = getattr(cfg_or_checkpoint, "pretrained_checkpoint", cfg_or_checkpoint)
+    if model_family != "openvla":
+        raise ValueError(f"unsupported model family {model_family!r}")
+    return load_policy(checkpoint, **kwargs)
+
+
+def get_action(policy: VLAPolicy, obs: Dict, task_label: str,
+               model_family: str = "openvla") -> np.ndarray:
+    """`get_action`: an obs dict with 'full_image' -> the 7-DoF action."""
+    if model_family != "openvla":
+        raise ValueError(f"unsupported model family {model_family!r}")
+    return policy.get_action(obs["full_image"], task_label)

@@ -6,7 +6,8 @@ the MLP projector, the attack's multimodal forward (`vla_forward`), and the
     the backbone split is the leading stack axis of the [B, 2, H, W, 3]
     pixel layout (models/vlm.py of the JAX package);
   - projector: fc1 -> GELU -> fc2 -> GELU -> fc3 (fused variant) or
-    fc1 -> GELU -> fc2 (single tower), exact-erf GELU in fp32.
+    fc1 -> GELU -> fc2 (single tower), exact-erf GELU in fp32;
+  - decoder: Llama-family by default, Phi-2 for the `phi-2+3b` zoo entry.
 """
 
 from __future__ import annotations
@@ -17,11 +18,17 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .. import not_ported
 from .config import PhiConfig, VLAConfig, torch_dtype
 from .llama import Llama, cross_entropy_loss, embed_tokens, init_llama_params, llama_apply
 from .param_tree import ParamTree
+from .phi import Phi, init_phi_params, phi_apply
 from .vit import ViT, _normal, init_vit_params, vit_features
+
+
+def decoder_apply_fn(cfg: VLAConfig):
+    """The decoder forward for this config: Llama-family by default, Phi-2
+    for the one zoo entry that is not Llama-shaped (phi-2+3b)."""
+    return phi_apply if isinstance(cfg.llm, PhiConfig) else llama_apply
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -72,11 +79,10 @@ def vla_forward(
     logits). With `cfg.remat` the vision encode is one outer checkpoint
     (only the pixels and the projected patches stay saved) over per-block
     checkpoints, and every decoder block is checkpointed."""
-    if isinstance(cfg.llm, PhiConfig):
-        raise not_ported("the Phi-2 decoder", "slice 4: model zoo")
+    apply_fn = decoder_apply_fn(cfg)
     llm = params["llm"]
     if pixel_values is None:
-        logits = llama_apply(llm, cfg.llm, embed_tokens(llm, input_ids),
+        logits = apply_fn(llm, cfg.llm, embed_tokens(llm, input_ids),
                              attention_mask=attention_mask, remat=cfg.remat)
         loss = cross_entropy_loss(logits, labels) if labels is not None else None
         return VLAOutput(loss=loss, logits=logits)
@@ -94,7 +100,7 @@ def vla_forward(
     mm_emb = torch.cat([emb[:, :1], projected.to(emb.dtype), emb[:, 1:]], dim=1)
     ones = torch.ones(projected.shape[:2], dtype=attention_mask.dtype, device=attention_mask.device)
     mm_mask = torch.cat([attention_mask[:, :1], ones, attention_mask[:, 1:]], dim=1)
-    logits = llama_apply(llm, cfg.llm, mm_emb, attention_mask=mm_mask, remat=cfg.remat,
+    logits = apply_fn(llm, cfg.llm, mm_emb, attention_mask=mm_mask, remat=cfg.remat,
                          logits_tail=input_ids.shape[1])
     # every valid label lives in the text region and labels[0] (BOS) is
     # IGNORE, so the shifted CE over the text logits is the extended row's
@@ -128,7 +134,7 @@ class VLA(ParamTree):
             vision.add_module("siglip", ViT(cfg.siglip, tree["vision"]["siglip"]))
         self.vision = vision
         self.projector = Projector(tree["projector"])
-        self.llm = Llama(cfg.llm, tree["llm"])
+        self.llm = (Phi if isinstance(cfg.llm, PhiConfig) else Llama)(cfg.llm, tree["llm"])
 
     def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
         """Projected patch embeddings [B, num_patches, llm_dim]."""
@@ -140,8 +146,6 @@ def init_vla_params(
 ) -> Dict:
     """Random params in the JAX pytree layout, in the config's dtype, drawn
     from `gen` on `device` (the generator's device by default)."""
-    if isinstance(cfg.llm, PhiConfig):
-        raise not_ported("the Phi-2 decoder", "slice 4: model zoo")
     device = gen.device if device is None else device
     dtype = torch_dtype(cfg)
     vision: Dict = {"dino": init_vit_params(gen, cfg.dino, dtype, device)}
@@ -168,5 +172,10 @@ def init_vla_params(
             "fc1_w": normal((vdim, ldim)), "fc1_b": zeros(ldim),
             "fc2_w": normal((ldim, ldim)), "fc2_b": zeros(ldim),
         }
-    llm = init_llama_params(gen, cfg.llm, dtype, device)
+    init_llm = init_phi_params if isinstance(cfg.llm, PhiConfig) else init_llama_params
+    llm = init_llm(gen, cfg.llm, dtype, device)
     return {"vision": vision, "projector": projector, "llm": llm}
+
+
+def param_count(params: Dict) -> int:
+    return sum(param_count(v) if isinstance(v, Mapping) else v.numel() for v in params.values())

@@ -180,9 +180,12 @@ def test_cpu_int4_policy_launches_no_kernel():
     {"checkpoint": "/nonexistent"}, {"center_crop": True},
 ])
 def test_load_policy_refuses_unported_options(kwargs):
+    """center_crop is not ported yet; a missing checkpoint directory raises
+    FileNotFoundError naming it (never random weights)."""
     kwargs = dict(kwargs)
     ckpt = kwargs.pop("checkpoint", None)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    error, match = (FileNotFoundError, "/nonexistent") if ckpt else (NotImplementedError, "ROADMAP.md")
+    with pytest.raises(error, match=match):
         load_policy(ckpt, "vla-tiny", device="cpu", **kwargs)
 
 
