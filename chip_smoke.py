@@ -41,7 +41,16 @@ Phases, each of which fails the run (non-zero exit, no result line) on error:
                breakdown and peak memory; TMA (with the val and clean-filter
                steps) and UPA steps; one inner step's loss and patch gradient
                through the kernels against the plain attention path;
-  7. checkpoint — the 7B from a checkpoint directory: the seeded bf16 weights
+  7. data    — the RLDS data plane: the port's writer makes 24 episodes x 16
+               steps of 256x256 JPEG frames in the bridge schema under
+               build/; a bs 8 batch through device_prefetch onto the card
+               (bit-equal) and the runner's copy, pinned against pageable.
+               With a reader (DATA_LAYER, fixed from what the card's machine
+               offers; none builds or imports there yet), also the data
+               plane's frames/s, first batch and batch ms, and `cli.attack
+               --dataset bridge_orig` on its batches (the same checks as the
+               attack phase, plus the DATA_* lines and the statistics file);
+  8. checkpoint — the 7B from a checkpoint directory: the seeded bf16 weights
                of `cli.attack --seed` written in the released OpenVLA
                layout (three safetensors shards, the index, config.json,
                dataset_statistics.json) under build/; the read rate onto the
@@ -906,12 +915,15 @@ def phase_attack(card: str) -> dict:
             f"{evals} val forwards x {layers} B1)")
         if launches != want:
             raise AssertionError(f"CLI launch count {launches} != {want}")
+        cli_peak = torch.cuda.max_memory_allocated() / 2**30
         lines = [json.loads(ln) for ln in open(os.path.join(out_dir, "run-metrics.jsonl"))]
         losses = [ln["TRAIN_loss"] for ln in lines if "TRAIN_loss" in ln]
         vals = [ln for ln in lines if any(k.startswith("VAL_") for k in ln)]
         if len(losses) != CLI_ITERS or not np.all(np.isfinite(losses)) or len(vals) != evals:
             raise AssertionError(f"CLI losses {losses}, {len(vals)} val lines")
         log(f"attack: TRAIN_loss per step {losses}; VAL lines {[{k: v for k, v in ln.items() if k.startswith('VAL')} for ln in vals]}")
+        cli_timing = {k: v for ln in lines for k, v in ln.items() if k.startswith("TIMING_")}
+        log(f"attack: the CLI run's {cli_timing} [{card}]")
         init = torch.rand((*PATCH_HW, 3), generator=torch.Generator().manual_seed(SEED))
         for tag in ("final", "last"):
             chw = torch.load(os.path.join(out_dir, tag, "patch.pt"), weights_only=True)
@@ -1019,7 +1031,237 @@ def phase_attack(card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches": launches, "inner_ms": inner_ms, "device": found, "peak_gib": peak,
-            "rel": rel, "cos": cos}
+            "rel": rel, "cos": cos, "cli_timing": cli_timing, "cli_peak_gib": cli_peak, "want": want}
+
+
+# ------------------------------------------------------------------ data
+# The RLDS data plane, cut to size: 24 episodes x 16 steps of 256x256 JPEG
+# frames in the bridge schema (camera image_0), written by the port's own
+# writer (no TensorFlow needed); a 256-frame shuffle buffer in place of the
+# reference's 100,000 (15.05 GB of 224x224 frames, and the first batch would
+# wait for all of them). 24 episodes keep the 95% / 5% split of a tfrecord
+# layout non-empty (it needs at least 20).
+DATA_EPISODES, DATA_STEPS, DATA_FRAME, DATA_SHUFFLE = 24, 16, 256, 256
+# The reader the phase drives, fixed here from what the card's machine offers
+# (PERF.md, ROADMAP.md): "native" (the C++ reader) where native/rlds_reader.cpp
+# builds, else "tfrecord" where TensorFlow imports, else None. That machine has
+# neither: no libjpeg headers (jpeglib.h) for the reader and no TensorFlow.
+# With None the phase runs what needs no reader: the writer, and the batch's
+# way onto the card (device_prefetch, the runner's pinned copy).
+DATA_LAYER = None
+DATA_BLOCKER = ("native/rlds_reader.cpp does not build there (no jpeglib.h, no libjpeg to link) and "
+                "TensorFlow is not installed")
+
+
+class NativeTrajectories:
+    """The standardized trajectories of a written layout, read by the port's
+    C++ reader (the native layer's own parsing and NumPy bridge transform):
+    what `compute_dataset_statistics` aggregates."""
+
+    def __init__(self, paths, image_key):
+        self.paths, self.image_key = paths, image_key
+
+    def as_numpy_iterator(self):
+        from roboticattack_torch.data.native_loader import NativeRLDSReader
+        from roboticattack_torch.data.native_pipeline import _episode_to_traj, np_bridge_orig_transform
+
+        reader = NativeRLDSReader(self.paths)
+        try:
+            for ex in reader:
+                traj = _episode_to_traj(ex, self.image_key)
+                ex.close()
+                yield np_bridge_orig_transform(traj)
+        finally:
+            reader.close()
+
+
+def check_batches_equal(label: str, got, want) -> None:
+    for name, a, b in zip(want._fields, got, want):
+        a = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+        if a.dtype != np.asarray(b).dtype or not np.array_equal(a, b):
+            raise AssertionError(f"{label}: {name} differs")
+
+
+def batch_onto_the_card(first, card: str) -> dict:
+    """A host batch through device_prefetch onto the card (bit-equal), and
+    the host->device ms of the runner's copy, pinned against pageable."""
+    from roboticattack_torch.data import device_prefetch
+
+    placed = next(device_prefetch(iter([first]), depth=1, device=DEVICE))
+    torch.cuda.synchronize()
+    check_batches_equal("the batch through device_prefetch", placed, first)
+    times = {"pinned": [], "pageable": []}
+    for _ in range(20):
+        for kind, out in times.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            engine.batch_to_device(first, DEVICE, non_blocking=kind == "pinned")
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t) * 1e3)
+    h2d = {k: float(np.median(v)) for k, v in times.items()}
+    mb = sum(np.asarray(a).size * (4 if i == 0 else 8) for i, a in enumerate(first)) / 1e6
+    log(f"data: a bs={ATTACK_BS} batch through device_prefetch onto the card is bit-equal to the host "
+        f"batch; host->device of the batch ({mb:.2f} MB as f32 images and int64 ids, mask, labels): "
+        f"pinned + non_blocking {h2d['pinned']:.3f} ms (the pinning copy included), pageable "
+        f"{h2d['pageable']:.3f} ms (median of 20, in turns) [{card}]")
+    return h2d
+
+
+def phase_data(card: str, att: dict) -> dict:
+    """The attack on real-format RLDS data: the port writes a layout; with a
+    reader (DATA_LAYER), the data plane alone is timed and `cli.attack
+    --dataset bridge_orig --file_layer DATA_LAYER` runs the 7B UADA attack on
+    its batches."""
+    from roboticattack_torch.data import native_loader, rlds, synthetic_shards
+    from roboticattack_torch.data.native_pipeline import NativeFrameDataset, discover_tfrecords
+
+    cfg = get_config(MODEL)
+    size = cfg.dino.image_size
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_rlds")
+    shutil.rmtree(root, ignore_errors=True)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    cores = os.cpu_count() or 1
+    out = {}
+    try:
+        t = time.perf_counter()
+        vdir = synthetic_shards.write_rlds_layout(
+            root, name="bridge_orig", n_episodes=DATA_EPISODES, steps=DATA_STEPS, image_key="image_0",
+            image_size=DATA_FRAME, rng=np.random.default_rng(SEED))
+        out["write_s"] = time.perf_counter() - t
+        out["bytes"] = sum(os.path.getsize(os.path.join(vdir, f)) for f in os.listdir(vdir))
+        log(f"data: wrote {DATA_EPISODES} episodes x {DATA_STEPS} steps of {DATA_FRAME}x{DATA_FRAME} JPEG "
+            f"frames (bridge schema, image_0) with the port's writer: {out['bytes']} bytes in "
+            f"{out['write_s']:.2f} s ({out['bytes'] / out['write_s'] / 1e6:.2f} MB/s) [{card}]")
+        if DATA_LAYER is None:
+            log(f"data: no RLDS reader runs on this machine: {DATA_BLOCKER}; the attack on RLDS data is "
+                f"not run here (the CPU tests hold both layers to the JAX package's)")
+            out["h2d_ms"] = batch_onto_the_card(next(dummy_batches(ATTACK_BS)), card)
+            return out
+
+        t = time.perf_counter()
+        lib = native_loader.build_if_needed()
+        log(f"data: layer {DATA_LAYER!r}; built {os.path.relpath(lib)} from native/rlds_reader.cpp with "
+            f"g++ in {time.perf_counter() - t:.2f} s; {cores} host cores")
+        paths = discover_tfrecords("bridge_orig", root)
+        t = time.perf_counter()
+        stats = rlds.compute_dataset_statistics(NativeTrajectories(paths, "image_0"))
+        stats_path = os.path.join(root, "dataset_statistics.json")
+        rlds.save_reference_statistics({"bridge_orig": stats}, stats_path)
+        log(f"data: statistics of the {stats['num_transitions']} transitions computed by the port in "
+            f"{time.perf_counter() - t:.3f} s; q01 {np.round(stats['action']['q01'], 4).tolist()}, "
+            f"q99 {np.round(stats['action']['q99'], 4).tolist()}")
+
+        # --- the data plane alone
+        torch.cuda.synchronize()
+        free0, reserved0 = torch.cuda.mem_get_info()[0], torch.cuda.memory_reserved()
+        frames_per_pass = DATA_EPISODES * (DATA_STEPS - 2)  # the bridge transform drops 2 steps
+        one_pass = NativeFrameDataset(paths, "bridge_orig", stats, image_key="image_0", image_size=size,
+                                      train=False).as_numpy_iterator()
+        t = time.perf_counter()
+        n = sum(1 for _ in one_pass)
+        pass_s = time.perf_counter() - t
+        if n != frames_per_pass:
+            raise AssertionError(f"one pass gave {n} frames, not {frames_per_pass}")
+        jpegs = [ex.bytes_at("steps/observation/image_0", i)
+                 for ex in native_loader.NativeRLDSReader(paths) for i in range(DATA_STEPS)]
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(max_workers=cores) as pool:
+            list(pool.map(lambda b: native_loader.decode_jpeg_resized(b, size), jpegs[:cores]))
+            t = time.perf_counter()
+            list(pool.map(lambda b: native_loader.decode_jpeg_resized(b, size), jpegs))
+            decode_s = time.perf_counter() - t
+        out.update(frames_per_s=n / pass_s, decode_frames_per_s=len(jpegs) / decode_s)
+        log(f"data: one pass of the native layer (read, parse, standardize, decode + resize "
+            f"{DATA_FRAME}->{size}, normalize; NativeFrameDataset's pool of "
+            f"{min(8, cores // 2) if cores > 2 else 0} threads): {n} frames in {pass_s:.3f} s = "
+            f"{n / pass_s:.1f} frames/s; decode + resize alone on a pool of {cores} threads: {len(jpegs)} "
+            f"frames in {decode_s:.3f} s = {len(jpegs) / decode_s:.1f} frames/s [{card}]")
+
+        def iterators():
+            return rlds.make_attack_iterators(
+                "bridge_orig", ATTACK_BS, seed=SEED, data_dir=root, tokenizer=WordStubTokenizer(),
+                pad_to=PAD_TO, file_layer=DATA_LAYER, stats=stats, shuffle_buffer=DATA_SHUFFLE,
+                image_size=size)
+
+        t = time.perf_counter()
+        train, _ = iterators()
+        first = next(train)
+        out["first_batch_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        for _ in range(10):
+            next(train)
+        out["batch_ms"] = (time.perf_counter() - t) / 10 * 1e3
+        del train
+        check_batches_equal("the first batch built twice from one seed", next(iterators()[0]), first)
+        log(f"data: first bs={ATTACK_BS} batch of make_attack_iterators (shuffle buffer {DATA_SHUFFLE}) after "
+            f"{out['first_batch_s']:.3f} s; then {out['batch_ms']:.2f} ms a batch (frames_to_attack_batches: "
+            f"frames, tokenize, collate); the first batch built twice from seed {SEED} is bit-equal [{card}]")
+        out["h2d_ms"] = batch_onto_the_card(first, card)
+        torch.cuda.synchronize()
+        other = (free0 - torch.cuda.mem_get_info()[0]) - (torch.cuda.memory_reserved() - reserved0)
+        log(f"data: card memory taken outside torch's allocator while the data plane ran: "
+            f"{other / 2**20:.1f} MiB")
+        if abs(other) > 64 * 2**20:
+            raise AssertionError(f"{other / 2**20:.1f} MiB of card memory taken outside torch by the data plane")
+        gc.collect()
+
+        # --- the attack CLI on the data plane's batches
+        argv = ["--attack", "uada", "--model", MODEL, "--dataset", "bridge_orig", "--data_dir", root,
+                "--file_layer", DATA_LAYER, "--stats_json", stats_path, "--shuffle_buffer",
+                str(DATA_SHUFFLE), "--iter", str(CLI_ITERS), "--innerLoop", str(INNER), "--bs",
+                str(ATTACK_BS), "--pad_to", str(PAD_TO), "--warmup", "0", "--eval_every",
+                str(CLI_EVAL_EVERY), "--eval_batches", "1", "--seed", str(SEED), "--device", DEVICE,
+                "--output", out_dir]
+        evals = len(range(0, CLI_ITERS, CLI_EVAL_EVERY))
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()  # the main path's count starts here
+        t = time.perf_counter()
+        attack_cli.main(argv)
+        torch.cuda.synchronize()
+        out["launches"] = launches = dict(fa.flash_attention.launches)  # read right after the main path
+        cli_s = time.perf_counter() - t
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"data: `python -m roboticattack_torch.cli.attack {' '.join(argv[:-2])}` ran in {cli_s:.1f} s "
+            f"(weight init included); B1/B2 launches {launches}, expected {att['want']}; peak allocated "
+            f"{out['peak_gib']:.2f} GiB (the dummy-data CLI run: {att['cli_peak_gib']:.2f} GiB) [{card}]")
+        if launches != att["want"]:
+            raise AssertionError(f"RLDS CLI launch count {launches} != {att['want']}")
+        lines = [json.loads(ln) for ln in open(os.path.join(out_dir, "run-metrics.jsonl"))]
+        losses = [ln["TRAIN_loss"] for ln in lines if "TRAIN_loss" in ln]
+        vals = [ln for ln in lines if any(k.startswith("VAL_") for k in ln)]
+        data = [{k: v for k, v in ln.items() if k.startswith("DATA_") or k == "step"}
+                for ln in lines if "DATA_frames_seen" in ln]
+        if len(losses) != CLI_ITERS or not np.all(np.isfinite(losses)) or len(vals) != evals:
+            raise AssertionError(f"RLDS CLI losses {losses}, {len(vals)} val lines")
+        if [d["step"] for d in data] != list(range(0, CLI_ITERS, CLI_EVAL_EVERY)):
+            raise AssertionError(f"RLDS CLI DATA_* lines {data}")
+        with open(os.path.join(out_dir, "dataset_statistics.json")) as f:
+            if json.load(f) != {"bridge_orig": stats}:
+                raise AssertionError("the run dir's dataset_statistics.json differs from the statistics passed in")
+        chw = torch.load(os.path.join(out_dir, "final", "patch.pt"), weights_only=True)
+        init = torch.rand((*PATCH_HW, 3), generator=torch.Generator().manual_seed(SEED))
+        moved = (chw.permute(1, 2, 0) - init).abs().max().item()
+        if tuple(chw.shape) != (3, *PATCH_HW) or chw.min() < 0 or chw.max() > 1 or moved == 0.0:
+            raise AssertionError(f"final/patch.pt: shape {tuple(chw.shape)}, range "
+                                 f"[{chw.min().item()}, {chw.max().item()}], moved {moved}")
+        out["timing"] = timing = {k: v for ln in lines for k, v in ln.items() if k.startswith("TIMING_")}
+        dummy = att["cli_timing"]
+        log(f"data: TRAIN_loss per step {losses}; VAL lines "
+            f"{[{k: v for k, v in ln.items() if k.startswith('VAL')} for ln in vals]}; DATA lines {data}; "
+            f"dataset_statistics.json in the run dir equals the statistics passed in; final/patch.pt in "
+            f"[{chw.min().item():.4f}, {chw.max().item():.4f}], max |change| {moved:.4g}")
+        log(f"data: outer step ({INNER} inner, bs {ATTACK_BS}, S = {cfg.num_patches + PAD_TO}) wall ms, RLDS "
+            f"data: p50 {timing['TIMING_p50_s'] * 1e3:.2f}, min {timing['TIMING_min_s'] * 1e3:.2f}, mean "
+            f"{timing['TIMING_mean_s'] * 1e3:.2f}; dummy data (phase attack, this process): p50 "
+            f"{dummy['TIMING_p50_s'] * 1e3:.2f}, min {dummy['TIMING_min_s'] * 1e3:.2f}, mean "
+            f"{dummy['TIMING_mean_s'] * 1e3:.2f} (TIMING_* include staging the next batch's copy) [{card}]")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(out_dir, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------------------ checkpoint
@@ -1389,6 +1631,7 @@ def main() -> int:
     log(f"freed the serving phases: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
     flash = phase_flash(bw, card)
     att = phase_attack(card)
+    data = phase_data(card, att)
     ckpt = phase_checkpoint(card)
 
     kernels = []
@@ -1398,6 +1641,8 @@ def main() -> int:
             "name": kname, "route": "cuda", "source": FLASH_SOURCE, "replaces": replaces,
             "launches": att["launches"][kind], "max_abs_err": flash["errs"][kind],
             "launches_by_path": {"attack CLI (seeded weights)": att["launches"][kind],
+                                 **({f"attack CLI on RLDS data ({DATA_LAYER})": data["launches"][kind]}
+                                    if DATA_LAYER else {}),
                                  "attack CLI --checkpoint (1 step x 1 inner + 1 val)":
                                      ckpt["attack_launches"][kind]},
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

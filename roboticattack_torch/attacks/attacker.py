@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from .. import not_ported
+from ..data.prefetch import host_prefetch
 from ..models.config import VLAConfig
 from ..utils.constants import ACTION_DIM, ACTION_TOKEN_MIN, ACTION_TOKEN_ZERO
 from ..utils.labels import build_tma_target_tokens, gripper_open_rows
@@ -138,6 +139,7 @@ class OpenVLAAttacker:
         save_dir: str,
         attack: AttackConfig,
         tracker: Optional[Tracker] = None,
+        data_counters: Optional[Dict] = None,
     ) -> None:
         if attack.ddp_semantics == "exact":
             raise not_ported("ddp_semantics='exact'", "slice 2 item 7: data-parallel attack")
@@ -145,6 +147,8 @@ class OpenVLAAttacker:
         self.attack = attack
         self.save_dir = save_dir
         self.tracker = tracker or Tracker(save_dir, quiet=False)
+        # the data plane's frames_seen / frames_skipped_pad_to, updated in place
+        self.data_counters = data_counters
         os.makedirs(save_dir, exist_ok=True)
         self.params = params.tree() if isinstance(params, nn.Module) else params
         self.device = _first_tensor(self.params).device
@@ -220,18 +224,31 @@ class OpenVLAAttacker:
             state = init_attack_state(torch.Generator().manual_seed(a.seed), a.patch_hw, self.device)
         sched_total = int(a.num_iter / a.accumulate_steps)
         grip_filter = a.filter_grip_train_to_1 and list(a.maskidx) == [6]
+        # the host side of the next batches (reading, decoding, tokenizing,
+        # collating) runs on a daemon thread while the device computes
+        train_batches = host_prefetch(train_batches, depth=2)
 
-        for i in range(start_iter, a.num_iter):
+        def next_placed():
             nb = next(train_batches)
             if grip_filter:
                 nb = filter_gripper_open(nb, rng_np)
-            batch = batch_to_device(nb, self.device)
+            return batch_to_device(nb, self.device, non_blocking=True)
+
+        # a resume that is already complete takes no batch
+        if start_iter < a.num_iter:
+            staged = next_placed()
+        for i in range(start_iter, a.num_iter):
+            batch = staged
             lr = cosine_schedule_with_warmup(i // a.accumulate_steps, a.lr, a.warmup, sched_total)
             apply_update = (i + 1) % a.accumulate_steps == 0
             draws = draw_step(torch.Generator().manual_seed(a.seed * 1000003 + i), self.spec,
                               batch.images.shape, a.patch_hw, batch.labels.shape)
             with timer:
                 state, metrics = self._step(self.params, state, batch, lr, apply_update, draws)
+                # stage the next batch's copy to the card while the step runs
+                # (the step is queued, not finished), as the JAX runner does
+                if i + 1 < a.num_iter:
+                    staged = next_placed()
                 self._sync()
 
             host = {k: v.float().cpu().numpy() for k, v in metrics.items()}
@@ -245,6 +262,12 @@ class OpenVLAAttacker:
             self.tracker.log(log, step=i)
 
             if i % a.eval_every == 0:
+                if self.data_counters and self.data_counters.get("frames_seen"):
+                    seen = self.data_counters["frames_seen"]
+                    skipped = self.data_counters.get("frames_skipped_pad_to", 0)
+                    self.tracker.log({"DATA_frames_seen": seen,
+                                      "DATA_frames_skipped_pad_to": skipped,
+                                      "DATA_pad_to_skip_rate": skipped / seen}, step=i)
                 self._validate(state, val_batches, i)
                 self.save_state(state, i)
 

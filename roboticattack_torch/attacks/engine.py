@@ -81,12 +81,16 @@ class StepDraws(NamedTuple):
     coin: Optional[torch.Tensor] = None
 
 
-def batch_to_device(batch, device) -> AttackBatch:
+def batch_to_device(batch, device, non_blocking: bool = False) -> AttackBatch:
     """A numpy batch (data/collator.py) -> tensors on `device`: f32 images,
-    int64 ids, mask and labels."""
+    int64 ids, mask and labels. With `non_blocking` and a CUDA device, each
+    array is converted on the host, pinned and copied without waiting: the
+    copy is queued on the current stream behind the work already there."""
     images, ids, mask, labels = (torch.as_tensor(np.asarray(a)) for a in batch)
-    return AttackBatch(images=images.float().to(device), input_ids=ids.long().to(device),
-                       attention_mask=mask.long().to(device), labels=labels.long().to(device))
+    host = (images.float(), ids.long(), mask.long(), labels.long())
+    if non_blocking and torch.device(device).type == "cuda":
+        host = tuple(t.pin_memory() for t in host)
+    return AttackBatch(*(t.to(device, non_blocking=non_blocking) for t in host))
 
 
 def init_attack_state(gen: Optional[torch.Generator], patch_hw: Tuple[int, int], device) -> AttackState:

@@ -8,11 +8,18 @@ Examples:
       --model vla-tiny --device cpu --dataset dummy --iter 3 --innerLoop 2 --bs 2
   python -m roboticattack_torch.cli.attack --attack uada --model openvla-7b \\
       --checkpoint /path/to/openvla-7b --dataset dummy --iter 3 --innerLoop 2
+  python -m roboticattack_torch.cli.attack --attack uada --model openvla-7b \\
+      --dataset bridge_orig --data_dir /data/rlds --file_layer native \\
+      --stats_json dataset_statistics.json --iter 3 --innerLoop 2 --bs 8
 
 Weights come from --checkpoint (a local HF OpenVLA checkpoint directory,
-converted on the device; the dummy batches then take its tokenizer), else
-they are random, drawn from --seed on the device. Any --dataset but dummy
-(with --file_layer, --stats_json, --data_dir), --data_parallel /
+converted on the device; the batches then take its tokenizer), else they are
+random, drawn from --seed on the device. A real dataset is read from the
+TFDS layout under --data_dir by the --file_layer reader: `tfrecord` (plain
+tf.data; statistics computed from the shards unless --stats_json gives
+them), `native` (the C++ reader, no TensorFlow on the hot path; needs
+--stats_json) or `tf` (the TFDS builder; needs tensorflow_datasets). The run
+dir then holds the statistics as dataset_statistics.json. --data_parallel /
 --ddp_semantics exact and --profile raise: they are not ported yet
 (ROADMAP.md queue A).
 """
@@ -20,6 +27,7 @@ they are random, drawn from --seed on the device. Any --dataset but dummy
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import uuid
 
@@ -74,10 +82,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_parallel", type=str2bool, default=False,
                    help="data-parallel attack over the local devices (not ported)")
     p.add_argument("--file_layer", default="tf", choices=["tf", "tfrecord", "native"],
-                   help="RLDS reader of a real dataset (not ported)")
+                   help="RLDS reader of a real dataset: the TFDS builder (tf), plain tf.data over "
+                        "the on-disk shards (tfrecord) or the C++ reader (native)")
     p.add_argument("--stats_json", default=None, type=str,
-                   help="dataset_statistics.json of a real dataset (not ported)")
-    p.add_argument("--data_dir", default=None, type=str, help="TFDS data root (not ported)")
+                   help="dataset_statistics.json ({dataset: stats} or one bare block); "
+                        "required by --file_layer native")
+    p.add_argument("--data_dir", default=None, type=str, help="TFDS data root")
     p.add_argument("--shuffle_buffer", default=100_000, type=int,
                    help="frame shuffle-buffer size of a real dataset")
     p.add_argument("--ddp_semantics", default="gspmd", choices=["gspmd", "exact"],
@@ -113,9 +123,6 @@ def resolve_objective(args) -> str:
 
 def check_ported(args) -> None:
     """Raise for every option whose code is not ported yet."""
-    if args.dataset != "dummy":  # the dummy source reads no files: --file_layer does not apply
-        raise not_ported(f"--dataset {args.dataset} / --file_layer {args.file_layer} (RLDS data)",
-                         "slice 6: data")
     if args.data_parallel or args.ddp_semantics == "exact":
         raise not_ported("--data_parallel / --ddp_semantics exact", "slice 2 item 7: data-parallel attack")
     if args.profile:
@@ -123,19 +130,45 @@ def check_ported(args) -> None:
 
 
 def make_data(args, cfg):
-    """Train/val batch iterators of the dummy source (numpy batches),
-    tokenized with the checkpoint's tokenizer when there is one."""
-    from ..data import batch_iterator, dummy_frame_iterator
+    """Train/val batch iterators (numpy batches) of the requested dataset,
+    tokenized with the checkpoint's tokenizer when there is one, and for a
+    real dataset its frame counters and {dataset: statistics} (else None,
+    None). The dummy source reads no files, so --file_layer does not apply
+    to it."""
     from ..utils.prompting import tokenizer_from_checkpoint
 
-    tok = tokenizer_from_checkpoint(args.checkpoint)
-    image_size = cfg.dino.image_size
-    train = batch_iterator(dummy_frame_iterator(tok, image_size=image_size, seed=args.seed),
-                           args.bs, pad_to=args.pad_to)
-    # val batch size fixed at 8, as the reference's val loader
-    val = batch_iterator(dummy_frame_iterator(tok, image_size=image_size, seed=args.seed + 1),
-                         8, pad_to=args.pad_to)
-    return train, val
+    if args.dataset == "dummy":
+        from ..data import batch_iterator, dummy_frame_iterator
+
+        tok = tokenizer_from_checkpoint(args.checkpoint)
+        image_size = cfg.dino.image_size
+        train = batch_iterator(dummy_frame_iterator(tok, image_size=image_size, seed=args.seed),
+                               args.bs, pad_to=args.pad_to)
+        # val batch size fixed at 8, as the reference's val loader
+        val = batch_iterator(dummy_frame_iterator(tok, image_size=image_size, seed=args.seed + 1),
+                             8, pad_to=args.pad_to)
+        return train, val, None, None
+    from ..data.rlds import make_attack_iterators
+
+    stats = None
+    if args.stats_json:
+        with open(args.stats_json) as f:
+            blob = json.load(f)
+        # reference schema keys by dataset name; also accept a bare block
+        stats = blob.get(args.dataset, blob if "action" in blob else None)
+        if stats is None:
+            raise SystemExit(
+                f"--stats_json has no entry for '{args.dataset}' "
+                f"(keys: {sorted(blob)})"
+            )
+    counters, stats_sink = {}, {}
+    train, val = make_attack_iterators(
+        args.dataset, args.bs, seed=args.seed, checkpoint=args.checkpoint,
+        pad_to=args.pad_to, counters=counters, stats_sink=stats_sink,
+        file_layer=args.file_layer, stats=stats, data_dir=args.data_dir,
+        shuffle_buffer=args.shuffle_buffer, image_size=cfg.dino.image_size,
+    )
+    return train, val, counters, stats_sink
 
 
 def main(argv=None):
@@ -144,6 +177,7 @@ def main(argv=None):
     import torch
 
     from ..attacks.attacker import AttackConfig, OpenVLAAttacker
+    from ..data.rlds import save_reference_statistics
     from ..models import get_config
     from ..models.config import torch_dtype
     from ..models.convert import cast_tree, load_checkpoint_dir
@@ -158,8 +192,12 @@ def main(argv=None):
     objective = resolve_objective(args)
     if args.checkpoint:  # before the run dir: a missing checkpoint leaves nothing behind
         params = cast_tree(load_checkpoint_dir(args.checkpoint, cfg, device), torch_dtype(cfg))
+    # the data too: a dataset that cannot be read leaves nothing behind
+    train, val, data_counters, stats_sink = make_data(args, cfg)
     out_dir = args.output or os.path.join(args.server, "run", objective, exp_id)
     os.makedirs(out_dir, exist_ok=True)
+    if stats_sink:  # what the eval side unnormalizes with
+        save_reference_statistics(stats_sink, os.path.join(out_dir, "dataset_statistics.json"))
 
     target = "".join(str(i) for i in args.maskidx)
     run_name = (
@@ -202,8 +240,8 @@ def main(argv=None):
         eval_batches=args.eval_batches or (1000 if objective == "uada" else 100),
         seed=args.seed,
     )
-    train, val = make_data(args, cfg)
-    runner = OpenVLAAttacker(params, cfg, out_dir, attack, tracker=tracker)
+    runner = OpenVLAAttacker(params, cfg, out_dir, attack, tracker=tracker,
+                             data_counters=data_counters)
     result = runner.run(train, val, resume_from=args.resume)
     tracker.close()
     print(f"Attack done! best {attack.objective} val metric: {result.best_metric:.6g}")

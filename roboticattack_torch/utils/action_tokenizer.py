@@ -26,6 +26,15 @@ def decode_tokens(token_ids: torch.Tensor, vocab_size: int = VOCAB_SIZE) -> torc
     return centers[discretized.long()]
 
 
+def encode_actions(actions: torch.Tensor, vocab_size: int = VOCAB_SIZE) -> torch.Tensor:
+    """Continuous actions in [-1, 1] -> int32 token ids in [31744, 31999]:
+    ``vocab_size - searchsorted(bins, clip(a), side='right')``, which is
+    ``np.digitize`` for increasing bins."""
+    actions = torch.clamp(actions, -1.0, 1.0)
+    bins = torch.as_tensor(BINS, dtype=actions.dtype, device=actions.device)
+    return (vocab_size - torch.searchsorted(bins, actions.contiguous(), right=True)).to(torch.int32)
+
+
 def encode_actions_np(actions: np.ndarray, vocab_size: int = VOCAB_SIZE) -> np.ndarray:
     """Continuous actions -> token ids: ``vocab_size - digitize(clip(a), bins)``."""
     actions = np.clip(actions, -1.0, 1.0)
@@ -36,3 +45,8 @@ def decode_tokens_np(token_ids: np.ndarray, vocab_size: int = VOCAB_SIZE) -> np.
     discretized = vocab_size - np.asarray(token_ids)
     discretized = np.clip(discretized - 1, 0, BIN_CENTERS.shape[0] - 1)
     return BIN_CENTERS[discretized]
+
+
+def action_token_string(actions: np.ndarray) -> str:
+    """The action token ids as text, space-separated (a debugging aid)."""
+    return " ".join(str(int(t)) for t in encode_actions_np(np.asarray(actions)))

@@ -1,7 +1,9 @@
 """The port's attack CLI and runner on the CPU: a tiny UADA run to the end
 with the JAX runner's artifacts, `patch.pt` interchangeable both ways with
 the JAX package's artifacts, the resumable state, the refused
-(not yet ported) options, and no silent CPU fallback."""
+(not yet ported) options, runs on real-format RLDS data (the tfrecord and
+native layers) against the JAX CLI's data setup, and no silent CPU
+fallback."""
 
 import json
 import os
@@ -93,8 +95,6 @@ def test_state_round_trip_and_resume(tmp_path):
 
 @pytest.mark.parametrize("flags,match", [
     (["--checkpoint", "/nonexistent"], "/nonexistent"),
-    (["--dataset", "bridge_orig"], "RLDS"),
-    (["--dataset", "bridge_orig", "--file_layer", "native"], "RLDS"),
     (["--data_parallel", "true"], "data-parallel"),
     (["--ddp_semantics", "exact"], "data-parallel"),
     (["--profile", "/tmp/trace"], "profile"),
@@ -102,9 +102,6 @@ def test_state_round_trip_and_resume(tmp_path):
 def test_unported_options_raise(flags, match, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)  # the default run dir is ./run/...
     argv = ["--device", "cpu", *TINY]
-    if "--dataset" in flags:
-        argv[argv.index("--dataset") + 1] = flags[1]
-        flags = flags[2:]
     # a missing checkpoint directory raises FileNotFoundError naming it,
     # before the run dir is made; every other flag is not ported yet
     error = FileNotFoundError if "--checkpoint" in flags else NotImplementedError
@@ -131,3 +128,102 @@ def test_cli_without_device_cpu_raises_without_a_gpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["--attack", "uada", "--output", str(tmp_path), *TINY])
     assert not (tmp_path / "final").exists()
+
+
+# ------------------------------------------------------------------ RLDS data
+BRIDGE_STATS = {"action": {"mean": [0.0] * 7, "std": [1.0] * 7, "min": [-3.0] * 7, "max": [3.0] * 7,
+                           "q01": [-2.0] * 7, "q99": [2.0] * 7, "mask": [True] * 6 + [False]}}
+
+
+@pytest.fixture
+def layouts(tmp_path, monkeypatch):
+    """A 20-episode bridge_orig layout written by each package's writer from
+    one seed (each package caches its statistics apart), the home statistics
+    caches moved under tmp_path, and a --stats_json file."""
+    from roboticattack_tpu.data import rlds as jr
+    from roboticattack_tpu.data import synthetic_shards as jss
+    from roboticattack_torch.data import rlds as tr
+    from roboticattack_torch.data import synthetic_shards as tss
+
+    monkeypatch.setattr(jr, "LOCAL_STATS_CACHE", str(tmp_path / "jax_home_cache"))
+    monkeypatch.setattr(tr, "LOCAL_STATS_CACHE", str(tmp_path / "torch_home_cache"))
+    dirs = {}
+    for pkg, mod in (("jax", jss), ("torch", tss)):
+        dirs[pkg] = str(tmp_path / f"data_{pkg}")
+        mod.write_rlds_layout(dirs[pkg], n_episodes=20, steps=5, image_size=32,
+                              rng=np.random.default_rng(11))
+    stats_json = tmp_path / "stats.json"
+    stats_json.write_text(json.dumps({"bridge_orig": BRIDGE_STATS}))
+    return dirs, str(stats_json)
+
+
+def jax_make_data(argv, out_dir):
+    """What the JAX CLI does with `argv` before its first step: parse, then
+    make_data, which writes <out_dir>/dataset_statistics.json."""
+    from roboticattack_tpu.cli import attack as jcli
+    from roboticattack_tpu.models import get_config
+
+    os.makedirs(out_dir, exist_ok=True)  # the JAX CLI makes its run dir first
+    return jcli.make_data(jcli.build_parser().parse_args(argv), get_config("vla-tiny"), out_dir=out_dir)
+
+
+@pytest.mark.parametrize("flags,error,match", [
+    (["--file_layer", "tf"], ImportError, "tensorflow_datasets"),
+    (["--file_layer", "native"], ValueError, "needs `stats`"),
+])
+def test_data_refusals_raise_as_the_jax_cli(flags, error, match, layouts, tmp_path, monkeypatch):
+    """--file_layer tf without tensorflow_datasets, and native without
+    --stats_json, raise the JAX CLI's error with its message, before the
+    port's CLI makes a run dir."""
+    dirs, _ = layouts
+    argv = ["--model", "vla-tiny", "--dataset", "bridge_orig", "--data_dir", dirs["jax"], *flags]
+    with pytest.raises(error, match=match) as want:
+        jax_make_data(argv, str(tmp_path / "jax_run"))
+    monkeypatch.chdir(tmp_path)
+    argv[argv.index("--data_dir") + 1] = dirs["torch"]
+    with pytest.raises(error, match=match) as got:
+        cli.main(["--device", "cpu", *argv])
+    assert str(got.value) == str(want.value).replace(dirs["jax"], dirs["torch"])
+    assert not (tmp_path / "run").exists(), "a refused run left a run dir behind"
+
+
+@pytest.mark.parametrize("layer", ["tfrecord", "native"])
+def test_cli_runs_on_rlds_data(layer, layouts, tmp_path, monkeypatch):
+    """`cli.attack --dataset bridge_orig --file_layer tfrecord|native` runs
+    the tiny UADA attack on the CPU: finite losses, the DATA_* lines at the
+    eval steps, and dataset_statistics.json equal to the one the JAX CLI
+    writes for the same layout (computed from the shards on the tfrecord
+    layer, --stats_json's on the native one). Without --device cpu it asks
+    for CUDA."""
+    dirs, stats_json = layouts
+    argv = ["--attack", "uada", "--model", "vla-tiny", "--dataset", "bridge_orig", "--file_layer", layer,
+            "--iter", "3", "--innerLoop", "2", "--bs", "2", "--eval_every", "2", "--eval_batches", "1",
+            "--shuffle_buffer", "32", "--seed", "3"]
+    if layer == "native":
+        argv += ["--stats_json", stats_json]
+    jax_make_data(argv + ["--data_dir", dirs["jax"]], str(tmp_path / "jax_run"))
+    out = tmp_path / "run"
+    result = cli.main(argv + ["--data_dir", dirs["torch"], "--device", "cpu", "--output", str(out)])
+    want = json.loads((tmp_path / "jax_run" / "dataset_statistics.json").read_text())
+    got = json.loads((out / "dataset_statistics.json").read_text())
+    assert got == want and list(got) == ["bridge_orig"]
+    if layer == "native":
+        assert got["bridge_orig"] == BRIDGE_STATS
+    else:
+        assert got["bridge_orig"]["num_trajectories"] == 20
+    lines = [json.loads(ln) for ln in (out / "run-metrics.jsonl").read_text().splitlines()]
+    losses = [ln["TRAIN_loss"] for ln in lines if "TRAIN_loss" in ln]
+    assert len(losses) == 3 and np.all(np.isfinite(losses))
+    data = [ln for ln in lines if "DATA_frames_seen" in ln]
+    assert [ln["step"] for ln in data] == [0, 2]
+    for ln in data:
+        assert ln["DATA_frames_seen"] >= 2 and ln["DATA_frames_skipped_pad_to"] == 0
+        assert ln["DATA_pad_to_skip_rate"] == 0.0
+    assert sum("VAL_val_mse_distance" in ln for ln in lines) == 2
+    patch = result.patch
+    assert patch.shape == (50, 50, 3) and 0.0 <= patch.min() and patch.max() <= 1.0
+
+    monkeypatch.setattr(tpolicy.torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(argv + ["--data_dir", dirs["torch"], "--output", str(tmp_path / "no_cuda")])
+    assert not (tmp_path / "no_cuda").exists()
