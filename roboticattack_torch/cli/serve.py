@@ -18,9 +18,8 @@ cache and visual-token pruning:
       --drafts --kv_cache int4 --visual_tokens 8
 
 The flags are the JAX CLI's (roboticattack_tpu/cli/serve.py), with
-`--platform` replaced by `--device cuda|cpu`. Options whose code is not
-ported yet (--center_crop, --tp/--dp other than 1) raise
-NotImplementedError naming their ROADMAP.md item.
+`--platform` replaced by `--device cuda|cpu`. --tp/--dp other than 1 (not
+ported yet) raise NotImplementedError naming their ROADMAP.md item.
 """
 
 from __future__ import annotations

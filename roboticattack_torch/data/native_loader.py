@@ -5,63 +5,47 @@ provides the native data plane: threaded-prefetch TFRecord reading with both
 CRCs checked, tf.Example wire parsing, and libjpeg decoding with a fused
 Lanczos-3 resize — the role TensorFlow's C++ tf.data runtime plays for the
 reference. The port compiles it at first use with the flags of
-`native/Makefile` into the git-ignored `build/native/` at the repository root,
-and again whenever the source is newer than the library; it never writes
-under `native/`. A failed build raises with the compiler's output.
+`native/Makefile`, against its own copy of libjpeg's headers and Pillow's
+bundled libjpeg (`utils/libjpeg.py`; no system `-ljpeg`), into the
+git-ignored `build/native/` at the repository root; the library's name
+carries a hash of the source and the build line, so an edit of either
+rebuilds it. It never writes under `native/`. A failed build raises with the
+compiler's output.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
-import tempfile
 import threading
 from typing import Iterator, Sequence
 
 import numpy as np
 
+from ..utils import libjpeg
+
 _REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
 SOURCE = os.path.join(_REPO, "native", "rlds_reader.cpp")
-BUILD_DIR = os.path.join(_REPO, "build", "native")
-# native/Makefile's CXXFLAGS and LDFLAGS
+BUILD_DIR = libjpeg.BUILD_DIR
+# native/Makefile's CXXFLAGS and LDFLAGS, with libjpeg from utils/libjpeg.py
 CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-Wall", "-shared")
-LD_FLAGS = ("-ljpeg", "-lpthread")
+LD_FLAGS = ("-lpthread",)
 _lib = None
 _lock = threading.Lock()
 
 
-def library_path() -> str:
-    return os.path.join(BUILD_DIR, "librlds_reader.so")
-
-
 def build_command(output: str) -> list:
-    return ["g++", *CXX_FLAGS, "-o", output, SOURCE, *LD_FLAGS]
+    return ["g++", *CXX_FLAGS, "-o", output, SOURCE, *libjpeg.jpeg_flags(), *LD_FLAGS]
+
+
+def library_path() -> str:
+    return libjpeg.hashed_path("rlds_reader", SOURCE, build_command(""), BUILD_DIR)
 
 
 def build_if_needed() -> str:
-    """Compile the reader into build/native/ unless a library newer than the
-    source is there; returns the library's path. Concurrent builders (other
-    processes) each compile into a temporary file and rename it into place,
-    so a reader never loads a half-written library."""
-    target = library_path()
-    if os.path.exists(target) and os.path.getmtime(target) >= os.path.getmtime(SOURCE):
-        return target
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(build_command(tmp), capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"building {SOURCE} failed (g++ exit {proc.returncode}):\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, target)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return target
+    """Compile the reader into build/native/ unless this source and build
+    line are built there already; returns the library's path."""
+    return libjpeg.build_library(library_path(), build_command, SOURCE)
 
 
 def load_library() -> ctypes.CDLL:

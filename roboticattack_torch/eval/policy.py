@@ -18,7 +18,6 @@ import numpy as np
 import torch
 from torch import nn
 
-from .. import not_ported
 from ..models.config import VLAConfig, get_config, torch_dtype
 from ..models.decode import (
     KV_CACHE_MODES,
@@ -34,7 +33,7 @@ from ..utils.device import resolve_device
 from ..utils.normalization import dual_normalize
 from ..utils.prompting import TextTokenizer, tokenizer_from_checkpoint
 from ..utils.quant_args import parse_quantize, resolve_quantize
-from .processing import eval_prompt, resize_bicubic_pil
+from .processing import center_crop_resize_tf, eval_prompt, resize_bicubic_pil
 
 PROMPT_PAD = 64
 # the decode options a policy holds and `VLAPolicy.decode` can override per call
@@ -76,14 +75,14 @@ class VLAPolicy:
         the CUDA dequant-matmul kernel.
 
         `kv_cache='int8'|'int4'` and `visual_tokens=k` reach every decode
-        (models/decode.py greedy_decode_actions)."""
+        (models/decode.py greedy_decode_actions). `center_crop=True` crops
+        each frame to 0.9 of its area and resizes it back to 224 before the
+        processor (the reference's eval-time crop, eval/processing.py)."""
         self.device = resolve_device(device)
         quant_mode, act_quant, quant_gs = resolve_quantize(quantize)
         if kv_cache not in KV_CACHE_MODES:
             raise ValueError(f"kv_cache={kv_cache!r}; supported: None, 'int8', 'int4'")
         self.kv_cache, self.visual_tokens, self.act_quant = kv_cache, visual_tokens, act_quant
-        if center_crop:
-            raise not_ported("center_crop", "slice 5: center crop")
         if int4_kernel is None:
             int4_kernel = quant_mode == "int4" and self.device.type == "cuda"
         self.int4_kernel = bool(int4_kernel)
@@ -125,6 +124,7 @@ class VLAPolicy:
         self.tokenizer = tokenizer
         self.norm_stats = norm_stats
         self.unnorm_key = unnorm_key
+        self.center_crop = center_crop
         self.prompt_pad = prompt_pad
         self._prompt_cache: Dict[str, tuple] = {}
         # [N, 7] token ids of the most recent get_action_multi call: the
@@ -169,10 +169,11 @@ class VLAPolicy:
                 f"{len(images_u8)} images vs {len(task_labels)} task labels"
             )
         size = self.cfg.dino.image_size
-        frames = [
-            img if img.shape[:2] == (size, size) else resize_bicubic_pil(img, size)
-            for img in images_u8
-        ]
+        frames = []
+        for img in images_u8:
+            if self.center_crop:  # the eval-time crop 0.9, back to 224 (TF's crop_and_resize)
+                img = center_crop_resize_tf(img, crop_scale=0.9)
+            frames.append(img if img.shape[:2] == (size, size) else resize_bicubic_pil(img, size))
         pixels = torch.from_numpy(np.stack(frames)).to(self.device).float() / 255.0
         pixels = dual_normalize(pixels).to(torch_dtype(self.cfg))
         rows = [self._tokenize(t) for t in task_labels]

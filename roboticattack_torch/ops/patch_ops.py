@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from ..utils.constants import CANVAS_FILL, COMPOSITE_THRESHOLD
-from .grid_sample import affine_warp, random_affine_matrix
+from .grid_sample import affine_warp, fixed_affine_matrix, random_affine_matrix
 
 SCALE_RANGE = (0.61, 1.39)
 
@@ -140,3 +140,32 @@ def quantize_patch_u8(patch: np.ndarray) -> np.ndarray:
     `mul(255).byte()` round trip)."""
     patch = np.asarray(patch)
     return (np.clip(patch, 0.0, 1.0) * 255.0).astype(np.uint8)
+
+
+def simulation_paste_patch(
+    image_u8: np.ndarray,
+    patch: np.ndarray,
+    position: Tuple[int, int],
+    geometry: bool = False,
+    angle: float = 0.0,
+    shx: float = 0.0,
+    shy: float = 0.0,
+) -> np.ndarray:
+    """Fixed-position uint8 paste of closed-loop evaluation
+    (simulation_random_patch, appply_random_transform.py:43-78).
+
+    image_u8: [H, W, 3] uint8 frame. patch: [ph, pw, 3] float in [0, 1]
+    (HWC). The composite threshold is 0 on this path (canvas fill -100, the
+    uint8 patch >= 0). With `geometry`, the canvas is warped on the CPU by
+    `affine_warp` with the fixed matrix of (angle, shx, shy)."""
+    h, w, _ = image_u8.shape
+    patch_u8 = quantize_patch_u8(patch).astype(np.float32)
+    x, y = int(position[0]), int(position[1])
+    canvas = np.full((h, w, 3), -100.0, dtype=np.float32)
+    ph, pw, _ = patch_u8.shape
+    canvas[y : y + ph, x : x + pw] = patch_u8
+    if geometry:
+        m = torch.from_numpy(fixed_affine_matrix(angle, shx, shy))
+        canvas = affine_warp(torch.from_numpy(canvas)[None], m[None], padding_mode="border")[0].numpy()
+    out = np.where(canvas < 0, image_u8.astype(np.float32), canvas)
+    return out.astype(np.uint8)

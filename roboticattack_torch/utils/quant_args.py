@@ -50,6 +50,26 @@ def resolve_quantize(
     return mode, None, gs
 
 
+def parse_suffixes(suffixes, context: str = ""):
+    """The once-each serving-lever suffixes of the acceptance gate's quant
+    modes (models/verify.py parse_quant_mode): kv8|kv4 (KV-cache
+    quantization), vt<k> (visual-token pruning) and qk (the CUDA int4
+    dequant-matmul decode tail) -> (kv_cache | None, visual_tokens | None,
+    qk: bool)."""
+    kv = vt = None
+    qk = False
+    for s in suffixes:
+        if s in ("kv8", "kv4") and kv is None:
+            kv = {"kv8": "int8", "kv4": "int4"}[s]
+        elif s.startswith("vt") and s[2:].isdigit() and int(s[2:]) >= 1 and vt is None:
+            vt = int(s[2:])
+        elif s == "qk" and not qk:
+            qk = True
+        else:
+            raise ValueError(f"{context}unknown suffix {s!r} (kv8|kv4 / vt<k> / qk, once each)")
+    return kv, vt, qk
+
+
 def add_int4_kernel_flag(parser) -> None:
     """The `--int4_kernel` flag of the serving CLI: auto|on|off ->
     resolve_int4_kernel maps to VLAPolicy's int4_kernel param (None = auto:

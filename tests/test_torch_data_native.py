@@ -12,6 +12,7 @@ same bytes)."""
 import io
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -41,16 +42,61 @@ def _stats():
 
 def test_library_built_under_build_not_native():
     path = tnl.build_if_needed()
-    assert path == tnl.library_path() == os.path.join(REPO, "build", "native", "librlds_reader.so")
-    assert os.path.isfile(path) and os.path.getmtime(path) >= os.path.getmtime(tnl.SOURCE)
+    assert path == tnl.library_path()
+    assert os.path.dirname(path) == os.path.join(REPO, "build", "native")
+    assert os.path.basename(path).startswith("librlds_reader-") and os.path.isfile(path)
     assert tnl.SOURCE == os.path.join(REPO, "native", "rlds_reader.cpp")
     cmd = tnl.build_command("/tmp/out.so")
     assert cmd[0] == "g++" and cmd[cmd.index("-o") + 1] == "/tmp/out.so"
     under_native = [a for a in cmd if a.startswith(os.path.join(REPO, "native"))]
     assert under_native == [tnl.SOURCE]  # the source is read, nothing there is written
-    for flag in ("-O2", "-fPIC", "-std=c++17", "-shared", "-ljpeg", "-lpthread"):
+    for flag in ("-O2", "-fPIC", "-std=c++17", "-shared", "-lpthread"):
         assert flag in cmd
     assert tnl.load_library() is tnl.load_library()
+
+
+def test_build_line_uses_the_vendored_headers_and_pillows_libjpeg(tmp_path, monkeypatch):
+    """Both C++ helpers compile against roboticattack_torch/native/include
+    and link Pillow's bundled libjpeg by full path with an rpath: no system
+    -ljpeg. The library's name follows the build line. The JPEG round-trip
+    helper builds and runs; without Pillow's libjpeg the build raises."""
+    from roboticattack_torch.eval import jpeg
+    from roboticattack_torch.utils import libjpeg
+
+    include = os.path.join(REPO, "roboticattack_torch", "native", "include")
+    lib = libjpeg.pillow_libjpeg()
+    assert os.path.basename(os.path.dirname(lib)) == "pillow.libs" and ".so.62" in os.path.basename(lib)
+    assert os.path.isfile(os.path.join(include, "jpeglib.h"))
+    for cmd in (tnl.build_command("/tmp/out.so"), jpeg.build_command("/tmp/out.so")):
+        assert "-ljpeg" not in cmd
+        assert cmd[cmd.index("-I") + 1] == include
+        assert lib in cmd and f"-Wl,-rpath,{os.path.dirname(lib)}" in cmd
+    assert tnl.library_path() != libjpeg.hashed_path("rlds_reader", tnl.SOURCE, ["g++", "-ljpeg"], tnl.BUILD_DIR)
+    img = np.random.default_rng(0).integers(0, 256, (32, 48, 3), dtype=np.uint8)
+    out = jpeg.jpeg_roundtrip(img)
+    assert out.shape == img.shape and out.dtype == np.uint8 and 0 < np.abs(out.astype(int) - img).mean() < 64
+    assert os.path.dirname(jpeg.library_path()) == os.path.join(REPO, "build", "native")
+    import PIL
+
+    monkeypatch.setattr(PIL, "__file__", str(tmp_path / "PIL" / "__init__.py"))
+    with pytest.raises(FileNotFoundError, match="libjpeg"):
+        tnl.build_command("/tmp/out.so")
+
+
+def test_an_edited_header_names_a_new_library(tmp_path, monkeypatch):
+    """The library's hash covers the vendored headers: a build against an
+    edited jpeglib.h is never served the library built against the old one."""
+    from roboticattack_torch.utils import libjpeg
+
+    inc = tmp_path / "include"
+    shutil.copytree(libjpeg.INCLUDE_DIR, inc)
+    monkeypatch.setattr(libjpeg, "INCLUDE_DIR", str(inc))
+    cmd = ["g++", "-I", str(inc)]
+    before = libjpeg.hashed_path("rlds_reader", tnl.SOURCE, cmd, tnl.BUILD_DIR)
+    assert libjpeg.hashed_path("rlds_reader", tnl.SOURCE, cmd, tnl.BUILD_DIR) == before
+    with open(inc / "jpeglib.h", "a") as f:
+        f.write("/* edited */\n")
+    assert libjpeg.hashed_path("rlds_reader", tnl.SOURCE, cmd, tnl.BUILD_DIR) != before
 
 
 def test_a_failed_build_raises_with_the_compiler_output(tmp_path, monkeypatch):
@@ -221,15 +267,14 @@ def test_stats_json_blob_for_the_native_cli(tmp_path):
     assert json.loads((tmp_path / "t.json").read_text()) == blob
 
 
-@pytest.mark.parametrize("layer", ["native", None])
+@pytest.mark.parametrize("layer", ["native"])
 def test_chip_smoke_data_phase_on_the_cpu(layer, monkeypatch):
     """chip_smoke.phase_data rehearsed on the CPU at a tiny size (vla-tiny
     with flash attention and remat; 4 episodes of 6 steps, 64x64 frames):
-    with the native reader, every check of the phase (bit-equal batches,
+    every check of the phase on the native reader (bit-equal batches,
     statistics in the run dir, B1/B2 launches counted on their plain
-    versions, DATA_* lines, the patch moved); without a reader, the writer
-    and the batch's way onto the device. The torch.cuda calls are stubbed:
-    the CPU has no card."""
+    versions, DATA_* lines, the patch moved, the batch's way onto the
+    device). The torch.cuda calls are stubbed: the CPU has no card."""
     import dataclasses
 
     import chip_smoke
@@ -260,9 +305,6 @@ def test_chip_smoke_data_phase_on_the_cpu(layer, monkeypatch):
            "cli_timing": {"TIMING_p50_s": 1.0, "TIMING_min_s": 1.0, "TIMING_mean_s": 1.0}}
     out = chip_smoke.phase_data("CPU", att)
     assert out["bytes"] > 0 and set(out["h2d_ms"]) == {"pinned", "pageable"}
-    if layer is None:
-        assert "launches" not in out
-    else:
-        assert out["launches"] == want and out["frames_per_s"] > 0 and out["first_batch_s"] > 0
-        assert set(out["timing"]) >= {"TIMING_p50_s", "TIMING_min_s"}
+    assert out["launches"] == want and out["frames_per_s"] > 0 and out["first_batch_s"] > 0
+    assert set(out["timing"]) >= {"TIMING_p50_s", "TIMING_min_s"}
     assert not os.path.exists(os.path.join(REPO, "build", "chip_smoke_rlds"))

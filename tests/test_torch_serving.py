@@ -177,15 +177,14 @@ def test_cpu_int4_policy_launches_no_kernel():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"checkpoint": "/nonexistent"}, {"center_crop": True},
+    {"checkpoint": "/nonexistent"},
 ])
 def test_load_policy_refuses_unported_options(kwargs):
-    """center_crop is not ported yet; a missing checkpoint directory raises
-    FileNotFoundError naming it (never random weights)."""
+    """A missing checkpoint directory raises FileNotFoundError naming it
+    (never random weights)."""
     kwargs = dict(kwargs)
     ckpt = kwargs.pop("checkpoint", None)
-    error, match = (FileNotFoundError, "/nonexistent") if ckpt else (NotImplementedError, "ROADMAP.md")
-    with pytest.raises(error, match=match):
+    with pytest.raises(FileNotFoundError, match="/nonexistent"):
         load_policy(ckpt, "vla-tiny", device="cpu", **kwargs)
 
 
