@@ -32,8 +32,8 @@ Phases, each of which fails the run (non-zero exit, no result line) on error:
   5. flash   — the attention kernels B1/B2 against their plain versions on
                the card (the attack step's shape with a dummy batch's causal
                + padding bias, B=1, the verify smoke's bs 2 with its batch's
-               bias, a ragged S, an all-zero bias, S=17 inside one tile,
-               S=2048), with times, bounds and the
+               bias, a data-parallel rank's bs 4, a ragged S, an all-zero
+               bias, S=17 inside one tile, S=2048), with times, bounds and the
                scaled_dot_product_attention yardstick;
   6. attack  — the attack slice end to end: `cli.attack` (UADA, OpenVLA-7B
                at full width and depth, bf16, random weights, dummy data)
@@ -82,6 +82,16 @@ Phases, each of which fails the run (non-zero exit, no result line) on error:
                plain attention path (loss and patch gradient) and each quant
                decode (B4 at m = 2) against the plain int4 tail on its inputs.
                The directory is deleted after it.
+ 11. ddp     — the data-parallel attack through torchrun: `python -m
+               torch.distributed.run --nproc_per_node N -m
+               roboticattack_torch.cli.attack --data_parallel true` (UADA,
+               the 7B, the attack phase's schedule) at N=1 on NCCL with
+               --profile, then N=2 on the one card over gloo with gspmd and
+               with exact; per run the ranks' patch hashes (equal), rank 0's
+               files alone, TRAIN_loss == TRAIN_mse_distance (no +1/CE), B1/B2
+               launches per rank, per-rank peak memory and outer-step ms
+               (two processes sharing one card: no scaling measure), the
+               profile's B1/B2 events, N=2's first loss against N=1's.
 Then one JSON line of per-kernel numbers, the card line, and the result line.
 
 Imports nothing of JAX or of the JAX package.
@@ -850,6 +860,8 @@ def phase_flash(bw: float, card: str) -> dict:
         ("attack shape, dummy-batch bias", (ATTACK_BS, h, s, d), bias8),
         ("B=1", (1, h, s, d), bias8[:1].contiguous()),
         ("verify smoke shape, its batch's bias", (SMOKE_BS, h, s, d), bias2),
+        ("a data-parallel rank's rows (bs 4 of 8), their bias", (ATTACK_BS // 2, h, s, d),
+         bias8[: ATTACK_BS // 2].contiguous()),
         ("ragged S=100", (2, 8, 100, d), causal(2, 100)),
         ("all-zero bias", (2, 8, 128, d), torch.zeros((2, 128, 128), device="cuda")),
         ("S=17, inside one tile", (2, 8, 17, d), causal(2, 17)),
@@ -2055,6 +2067,154 @@ def phase_verify(card: str, root: str) -> dict:
             "parity": steps["parity"], "rules": n_rules, "quant_against_plain": quant_checks}
 
 
+# ------------------------------------------------------------------ ddp
+# The data-parallel attack through its real entry point, torchrun over
+# `cli.attack --data_parallel true`, on the attack phase's schedule. The
+# machine has one card: N=1 runs NCCL, N=2 puts two processes on the one
+# card over gloo (NCCL refuses two ranks a device). Their times show that
+# the path works and what a rank holds, not how data parallelism scales.
+DDP_RUNS = [  # label, ranks, --ddp_semantics, --profile
+    ("N=1, nccl, gspmd, --profile", 1, "gspmd", True),
+    ("N=2 on one card, gloo, gspmd", 2, "gspmd", False),
+    ("N=2 on one card, gloo, exact", 2, "exact", False),
+]
+DDP_TIMEOUT_S = 300
+
+
+def torchrun_attack(nproc: int, semantics: str, out_dir: str, profile_dir=None) -> tuple:
+    """`python -m torch.distributed.run --nproc_per_node N -m
+    roboticattack_torch.cli.attack --data_parallel true ...` in its own
+    process group (killed whole on a timeout): (exit code, seconds, the
+    ranks' `ddp rank` lines by rank, the output's tail)."""
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(nproc),
+            "-m", "roboticattack_torch.cli.attack", "--attack", "uada", "--model", MODEL,
+            "--device", DEVICE, "--dataset", "dummy", "--iter", str(CLI_ITERS), "--innerLoop", str(INNER),
+            "--bs", str(ATTACK_BS), "--pad_to", str(PAD_TO), "--warmup", "0",
+            "--eval_every", str(CLI_EVAL_EVERY), "--eval_batches", "1", "--seed", str(SEED),
+            "--data_parallel", "true", "--ddp_semantics", semantics, "--output", out_dir]
+    if profile_dir:
+        argv += ["--profile", profile_dir]
+    t = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=DDP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.communicate()
+        raise AssertionError(f"torchrun --nproc_per_node {nproc} ({semantics}) ran past {DDP_TIMEOUT_S} s")
+    secs = time.perf_counter() - t
+    return proc.returncode, secs, rank_lines(out), out[-3000:]
+
+
+def rank_lines(out: str) -> dict:
+    """Each rank's `ddp rank r/W: {json}` object from the ranks' shared
+    output, by rank. Another rank's text may run into the line on either
+    side: a print's text and its newline are separate writes."""
+    ranks, decoder = {}, json.JSONDecoder()
+    for m in re.finditer(r"ddp rank (\d+)/(\d+): (?=\{)", out):
+        ranks[int(m.group(1))] = decoder.raw_decode(out, m.end())[0]
+    return ranks
+
+
+def trace_kernel_counts(path: str) -> dict:
+    """B1/B2 kernel events in a Chrome trace of torch.profiler."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    # the names are the kernels' mangled C++ symbols
+    return {"fwd": sum("flash_fwd_kernel" in n for n in names),
+            "bwd_rows": sum("flash_bwd_rows_kernel" in n for n in names),
+            "bwd_cols": sum("flash_bwd_cols_kernel" in n for n in names),
+            "kernels": len(names)}
+
+
+def phase_ddp(card: str) -> dict:
+    """The three torchrun runs of DDP_RUNS and their checks: exit 0, the
+    ranks' patch hashes equal, writes under the run dir by rank 0 alone
+    (each rank's count) and the N=1 run's set of files, finite
+    TRAIN losses with TRAIN_loss == TRAIN_mse_distance (no +1/CE), B1/B2
+    launches per rank as the config implies, the profile's B1/B2 events,
+    and N=2's first TRAIN_loss within 1e-2 relative of N=1's."""
+    log(f"ddp: the parent holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved before the runs")
+    layers = get_config(MODEL).llm.num_layers
+    evals = len(range(0, CLI_ITERS, CLI_EVAL_EVERY))
+    want = {"fwd": CLI_ITERS * INNER * 2 * layers + evals * layers, "bwd": CLI_ITERS * INNER * layers}
+    root = tempfile.mkdtemp(prefix="chip_smoke_ddp_")
+    out, files0, losses0 = {}, None, None
+    try:
+        for label, nproc, semantics, profile in DDP_RUNS:
+            run_dir = os.path.join(root, f"n{nproc}_{semantics}")
+            trace_dir = os.path.join(root, "trace") if profile else None
+            rc, secs, ranks, tail = torchrun_attack(nproc, semantics, run_dir, trace_dir)
+            if rc != 0 or sorted(ranks) != list(range(nproc)):
+                raise AssertionError(f"ddp {label}: exit {rc}, rank lines {sorted(ranks)}\n{tail}")
+            digests = {r["patch_sha256"] for r in ranks.values()}
+            lines = [json.loads(ln) for ln in open(os.path.join(run_dir, "run-metrics.jsonl"))]
+            train = [ln for ln in lines if "TRAIN_loss" in ln]
+            vals = [ln for ln in lines if any(k.startswith("VAL_") for k in ln)]
+            losses = [ln["TRAIN_loss"] for ln in train]
+            # the best-checkpoint dirs (<step>/) follow the val metric, which
+            # differs between runs; every other file is the same set in each
+            files = sorted(rel for d, _, fs in os.walk(run_dir) for f in fs
+                           if not (rel := os.path.relpath(os.path.join(d, f), run_dir)).split(os.sep)[0].isdigit())
+            launches = {r: v["flash_attention_launches"] for r, v in ranks.items()}
+            log(f"ddp: {label}: torchrun exit {rc} in {secs:.1f} s (process start and 7B init per rank "
+                f"included); backend {ranks[0]['backend']}; patch sha256 by rank "
+                f"{ {r: v['patch_sha256'][:16] for r, v in ranks.items()} }; TRAIN_loss {losses}; "
+                f"{len(vals)} VAL lines; {len(files)} files")
+            for r, v in sorted(ranks.items()):
+                log(f"ddp: {label}: rank {r} on {v['device']}: outer step p50 {v['step_p50_s'] * 1e3:.2f} ms, "
+                    f"mean {v['step_mean_s'] * 1e3:.2f} ms (the mean holds the waits on rank 0's file writes), "
+                    f"peak allocated {v['init_peak_gib']:.2f} GiB while the weights were drawn, "
+                    f"{v['run_peak_gib']:.2f} GiB over the attack, B1/B2 launches {v['flash_attention_launches']}"
+                    f"{' (two processes sharing one card)' if nproc > 1 else ''} [{card}]")
+            if len(digests) != 1:
+                raise AssertionError(f"ddp {label}: the ranks' final patches differ: {digests}")
+            if (len(losses) != CLI_ITERS or len(vals) != evals or not np.all(np.isfinite(losses))
+                    or any(ln["TRAIN_loss"] != ln["TRAIN_mse_distance"] for ln in train)):
+                raise AssertionError(f"ddp {label}: TRAIN lines {train}, {len(vals)} VAL lines")
+            if any(v != want for v in launches.values()):
+                raise AssertionError(f"ddp {label}: B1/B2 launches by rank {launches} != {want} each")
+            # each rank counts the writes it made under the shared run dir
+            writes = {r: v["writes"] for r, v in sorted(ranks.items())}
+            log(f"ddp: {label}: writes under the run dir by rank {writes}")
+            if not (writes[0] > 0 and all(n == 0 for r, n in writes.items() if r)):
+                raise AssertionError(f"ddp {label}: writes by rank {writes}: rank 0 alone must write")
+            if files0 is None:
+                files0 = files
+            elif files != files0:
+                raise AssertionError(f"ddp {label}: run dir holds {files}, not the N=1 run's {files0}")
+            res = {"seconds": secs, "losses": losses, "launches": launches, "backend": ranks[0]["backend"],
+                   "step_p50_ms": {r: v["step_p50_s"] * 1e3 for r, v in ranks.items()},
+                   "init_peak_gib": {r: v["init_peak_gib"] for r, v in ranks.items()},
+                   "run_peak_gib": {r: v["run_peak_gib"] for r, v in ranks.items()}, "sha256": digests.pop(),
+                   "writes": writes}
+            if profile:
+                traces = sorted(os.listdir(trace_dir))
+                counts = trace_kernel_counts(os.path.join(trace_dir, "trace_rank0.json"))
+                want_trace = {"fwd": INNER * 2 * layers, "bwd_rows": INNER * layers, "bwd_cols": INNER * layers}
+                log(f"ddp: {label}: --profile wrote {traces}; kernel events in trace_rank0.json {counts}, "
+                    f"B1/B2 expected {want_trace} (step 1: {INNER} inner steps)")
+                if traces != ["trace_rank0.json"] or any(counts[k] != n for k, n in want_trace.items()):
+                    raise AssertionError(f"ddp {label}: profile {traces}, kernel events {counts}")
+                res["trace"] = counts
+            if losses0 is None:
+                losses0 = losses
+            elif semantics == "gspmd":
+                rel = abs(losses[0] - losses0[0]) / abs(losses0[0])
+                log(f"ddp: {label}: step 0 TRAIN_loss {losses[0]!r} against N=1's {losses0[0]!r}: rel diff "
+                    f"{rel:.3g} (tol 1e-2; the same global batch and draws, other bf16 GEMM shapes)")
+                if not rel <= 1e-2:
+                    raise AssertionError(f"ddp {label}: step 0 loss {losses[0]} vs N=1's {losses0[0]}")
+                res["rel_to_n1"] = rel
+            out[label] = res
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA card",
@@ -2099,6 +2259,9 @@ def main() -> int:
         ver = phase_verify(card, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ddp = phase_ddp(card)
 
     kernels = []
     for kind, (kname, replaces) in FLASH_KERNELS.items():
@@ -2110,7 +2273,9 @@ def main() -> int:
                                  f"attack CLI on RLDS data ({DATA_LAYER})": data["launches"][kind],
                                  "attack CLI --checkpoint (1 step x 1 inner + 1 val)":
                                      ckpt["attack_launches"][kind],
-                                 "verify_checkpoint TMA smoke (bs 2)": ver["smoke_launches"][kind]},
+                                 "verify_checkpoint TMA smoke (bs 2)": ver["smoke_launches"][kind],
+                                 **{f"torchrun cli.attack --data_parallel, {label}, rank {r}": n[kind]
+                                    for label, run in ddp.items() for r, n in run["launches"].items()}},
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "at": f"[{ATTACK_BS}, 32, {256 + PAD_TO}, 128] bf16 with a dummy batch's causal + "

@@ -57,6 +57,11 @@ def _to_u8(img: np.ndarray) -> np.ndarray:
     return (np.clip(img, 0, 1) * 255).astype(np.uint8)
 
 
+def save_patch_png(patch_hwc: np.ndarray, path: str) -> None:
+    """An [H, W, 3] patch in [0, 1] as an 8-bit RGB PNG (truncated)."""
+    write_png(_to_u8(patch_hwc), path)
+
+
 def save_adv_images(images_hwc: np.ndarray, directory: str) -> List[str]:
     """Dump patched frames (raw [B, H, W, 3] in [0, 1]) as <i>.png."""
     os.makedirs(directory, exist_ok=True)
@@ -80,7 +85,7 @@ def save_checkpoint(
     d = os.path.join(save_dir, tag)
     os.makedirs(d, exist_ok=True)
     save_patch_pt(patch_hwc, os.path.join(d, "patch.pt"))
-    write_png(_to_u8(patch_hwc), os.path.join(d, "patch.png"))
+    save_patch_png(patch_hwc, os.path.join(d, "patch.png"))
     np.save(os.path.join(d, "patch.npy"), np.asarray(patch_hwc, np.float32))
     if adv_images is not None or extras:
         vd = os.path.join(d, "val_related_data")

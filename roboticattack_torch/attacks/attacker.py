@@ -3,8 +3,11 @@
 accumulation boundaries, draws each step's randomness, validates on the
 eval cadence and writes the artifacts.
 
-Single device: the data-parallel runner (a mesh, `ddp_semantics='exact'`)
-is not ported. The device is the one the params live on.
+The device is the one the params live on. With a mesh (parallel/mesh.py)
+every rank runs this runner on the same global batch stream: it keeps its
+rows of each batch, draws the global batch's randomness (`gspmd`) or its
+own (`exact`, attacks/ddp.py), and every file is written by rank 0 alone;
+the metrics, `best` and the histories are equal on every rank.
 
 Aggregation: per-example val metrics are averaged over the selected
 examples; checkpoint selection (TMA: val L1, UADA: val MSE distance, UPA:
@@ -22,14 +25,15 @@ import numpy as np
 import torch
 from torch import nn
 
-from .. import not_ported
 from ..data.prefetch import host_prefetch
 from ..models.config import VLAConfig
+from ..parallel.mesh import all_gather_rows, broadcast_object, process_zero, replicate, shard_batch
 from ..utils.constants import ACTION_DIM, ACTION_TOKEN_MIN, ACTION_TOKEN_ZERO
 from ..utils.labels import build_tma_target_tokens, gripper_open_rows
-from ..utils.profiling import StepTimer
+from ..utils.profiling import StepTimer, maybe_trace
 from ..utils.tracking import Tracker
 from .artifacts import plot_loss_curve, save_checkpoint, save_history_pickles
+from .ddp import make_ddp_attack_step
 from .engine import (
     AttackBatch,
     AttackSpec,
@@ -113,6 +117,7 @@ class AttackResult:
     patch: np.ndarray                      # [H, W, 3] float32
     best_metric: float
     histories: Dict[str, List[float]] = field(default_factory=dict)
+    timing: Dict[str, float] = field(default_factory=dict)  # StepTimer summary
 
 
 # objective -> (val metric key, sign): +1 minimizes, -1 maximizes
@@ -138,18 +143,23 @@ class OpenVLAAttacker:
         cfg: VLAConfig,
         save_dir: str,
         attack: AttackConfig,
+        mesh=None,
         tracker: Optional[Tracker] = None,
         data_counters: Optional[Dict] = None,
     ) -> None:
-        if attack.ddp_semantics == "exact":
-            raise not_ported("ddp_semantics='exact'", "slice 2 item 7: data-parallel attack")
+        self.exact = attack.ddp_semantics == "exact"
+        if self.exact and mesh is None:
+            raise ValueError("ddp_semantics='exact' needs a data mesh (--data_parallel true)")
         self.cfg = cfg
         self.attack = attack
         self.save_dir = save_dir
+        self.mesh = mesh
         self.tracker = tracker or Tracker(save_dir, quiet=False)
         # the data plane's frames_seen / frames_skipped_pad_to, updated in place
         self.data_counters = data_counters
-        os.makedirs(save_dir, exist_ok=True)
+        self.writes = 0
+        self._write(os.makedirs, save_dir, exist_ok=True)
+        # every rank builds the same weights: they stay where they are
         self.params = params.tree() if isinstance(params, nn.Module) else params
         self.device = _first_tensor(self.params).device
 
@@ -158,11 +168,29 @@ class OpenVLAAttacker:
             target = build_tma_target_tokens(attack.target_action * np.ones(ACTION_DIM), attack.maskidx)
         self._target = target
         self.spec = attack.spec()
-        self._step = make_attack_step(self.spec, cfg, target, attack.maskidx)
-        self._val = make_val_step(self.spec, cfg, target, attack.maskidx)
-        self._clean_val = make_clean_filter_step(cfg) if list(attack.maskidx) == [6] else None
+        if self.exact:
+            exact = make_ddp_attack_step(self.spec, cfg, target, attack.maskidx, mesh)
+
+            # no accumulation under exact (refused inside): apply_update is
+            # always true
+            def step(params, state, batch, lr, apply_update, draws):
+                del apply_update
+                return exact(params, state, batch, lr, draws)
+
+            self._step = step
+        else:
+            self._step = make_attack_step(self.spec, cfg, target, attack.maskidx, mesh)
+        self._val = make_val_step(self.spec, cfg, target, attack.maskidx, mesh)
+        self._clean_val = make_clean_filter_step(cfg, mesh) if list(attack.maskidx) == [6] else None
         self.histories: Dict[str, List[float]] = {}
         self.best = float("inf")
+
+    def _write(self, fn, *args, **kw) -> None:
+        """fn(*args, **kw), a write under the run dir, on rank 0 alone;
+        `writes` counts this process's."""
+        if process_zero():
+            fn(*args, **kw)
+            self.writes += 1
 
     def _record(self, name: str, value: float) -> None:
         self.histories.setdefault(name, []).append(float(value))
@@ -204,6 +232,41 @@ class OpenVLAAttacker:
         # saved after completing the step; resume at the next one
         return state, steps[-1] + 1
 
+    def _resume(self, resume_from: str) -> tuple:
+        """load_state, or under a mesh rank 0's state, best and histories
+        broadcast to every rank."""
+        if self.mesh is None or self.mesh.rank == 0:
+            state, start = self.load_state(resume_from)
+        else:  # a state of the same shapes, overwritten by rank 0's
+            state, start = init_attack_state(None, self.attack.patch_hw, self.device), None
+        if self.mesh is not None:
+            state = replicate(state, self.mesh)
+            start, self.best, self.histories = broadcast_object((start, self.best, self.histories), self.mesh)
+        if process_zero():
+            print(f"resumed attack state from {resume_from} at iter {start}")
+        return state, start
+
+    def _place(self, nb) -> tuple:
+        """A global numpy batch -> (this rank's rows on the device, the
+        global images and labels shapes that the draws take)."""
+        shapes = (np.shape(nb.images), np.shape(nb.labels))
+        if self.mesh is not None:
+            nb = shard_batch(nb, self.mesh)
+        return batch_to_device(nb, self.device, non_blocking=True), shapes
+
+    def _draws(self, seed: int, shapes: tuple):
+        """The step's draws from `seed`: the global batch's, the same on
+        every rank (one process, `gspmd`), or under `exact` each rank's own
+        stream over its rows (seed * W + rank)."""
+        images_shape, labels_shape = shapes
+        if self.exact:
+            w = self.mesh.size
+            seed = seed * w + self.mesh.rank
+            images_shape = (images_shape[0] // w, *images_shape[1:])
+            labels_shape = (labels_shape[0] // w, *labels_shape[1:])
+        return draw_step(torch.Generator().manual_seed(seed), self.spec, images_shape,
+                         self.attack.patch_hw, labels_shape)
+
     def run(
         self,
         train_batches: Iterator[AttackBatch],
@@ -211,17 +274,16 @@ class OpenVLAAttacker:
         profile_dir: Optional[str] = None,
         resume_from: Optional[str] = None,
     ) -> AttackResult:
-        if profile_dir is not None:
-            raise not_ported("--profile", "slice 7: training and infra (utils/profiling.py)")
         a = self.attack
         timer = StepTimer()
         rng_np = np.random.default_rng(a.seed)
         start_iter = 0
         if resume_from is not None:
-            state, start_iter = self.load_state(resume_from)
-            print(f"resumed attack state from {resume_from} at iter {start_iter}")
+            state, start_iter = self._resume(resume_from)
         else:
             state = init_attack_state(torch.Generator().manual_seed(a.seed), a.patch_hw, self.device)
+            if self.mesh is not None:
+                state = replicate(state, self.mesh)
         sched_total = int(a.num_iter / a.accumulate_steps)
         grip_filter = a.filter_grip_train_to_1 and list(a.maskidx) == [6]
         # the host side of the next batches (reading, decoding, tokenizing,
@@ -230,20 +292,20 @@ class OpenVLAAttacker:
 
         def next_placed():
             nb = next(train_batches)
-            if grip_filter:
+            if grip_filter:  # on the global batch, in lockstep on every rank
                 nb = filter_gripper_open(nb, rng_np)
-            return batch_to_device(nb, self.device, non_blocking=True)
+            return self._place(nb)
 
         # a resume that is already complete takes no batch
         if start_iter < a.num_iter:
             staged = next_placed()
         for i in range(start_iter, a.num_iter):
-            batch = staged
+            batch, shapes = staged
             lr = cosine_schedule_with_warmup(i // a.accumulate_steps, a.lr, a.warmup, sched_total)
             apply_update = (i + 1) % a.accumulate_steps == 0
-            draws = draw_step(torch.Generator().manual_seed(a.seed * 1000003 + i), self.spec,
-                              batch.images.shape, a.patch_hw, batch.labels.shape)
-            with timer:
+            draws = self._draws(a.seed * 1000003 + i, shapes)
+            # step 1, not the first: the first carries one-time setup
+            with maybe_trace(profile_dir if i == 1 else None), timer:
                 state, metrics = self._step(self.params, state, batch, lr, apply_update, draws)
                 # stage the next batch's copy to the card while the step runs
                 # (the step is queued, not finished), as the JAX runner does
@@ -269,15 +331,15 @@ class OpenVLAAttacker:
                                       "DATA_frames_skipped_pad_to": skipped,
                                       "DATA_pad_to_skip_rate": skipped / seen}, step=i)
                 self._validate(state, val_batches, i)
-                self.save_state(state, i)
+                self._write(self.save_state, state, i)
 
         patch = state.patch.cpu().numpy()
-        save_checkpoint(self.save_dir, "final", patch)
-        save_history_pickles(self.save_dir, self.histories)
+        self._write(save_checkpoint, self.save_dir, "final", patch)
+        self._write(save_history_pickles, self.save_dir, self.histories)
         summary = timer.summary()
         if summary:
             self.tracker.log({f"TIMING_{k}": v for k, v in summary.items()}, step=a.num_iter)
-        return AttackResult(patch=patch, best_metric=self.best, histories=self.histories)
+        return AttackResult(patch=patch, best_metric=self.best, histories=self.histories, timing=summary)
 
     def _validate(self, state: AttackState, val_batches: Iterator[AttackBatch], step: int) -> None:
         a = self.attack
@@ -289,9 +351,11 @@ class OpenVLAAttacker:
                                  "other_to_zero", "other_total")}
         adv_images = None
         for j in range(a.eval_batches):
-            batch = batch_to_device(next(val_batches), self.device)
+            batch, shapes = self._place(next(val_batches))
+            # the val step's draws are the global batch's under either
+            # semantics (the JAX runner scores DP with the sharded val step)
             draws = draw_step(torch.Generator().manual_seed(a.seed * 7 + step * 131 + j), self.spec,
-                              batch.images.shape, a.patch_hw, batch.labels.shape, inner=1)
+                              shapes[0], a.patch_hw, shapes[1], inner=1)
             m = self._val(self.params, state.patch, batch, draws)
             if self._clean_val is not None:
                 m["clean_gripper_correct"] = self._clean_val(self.params, batch)
@@ -300,7 +364,7 @@ class OpenVLAAttacker:
             # the clean-gripper-correct filter for TMA on the gripper dim, else
             # every example
             sel = (m["clean_gripper_correct"].astype(bool) if (a.objective == "tma" and is_grip_target)
-                   else np.ones(batch.images.shape[0], bool))
+                   else np.ones(shapes[0][0], bool))
             n = float(sel.sum())
             if n == 0:
                 continue
@@ -320,6 +384,8 @@ class OpenVLAAttacker:
             grip["other_total"] += float(is_other.sum())
             grip["other_to_zero"] += float((is_other & (gp == ACTION_TOKEN_ZERO)).sum())
             if j == a.eval_batches - 1:
+                if self.mesh is not None:  # every rank's rows, for rank 0's dump
+                    patched = all_gather_rows(patched, self.mesh)
                 adv_images = patched.cpu().numpy()
         if count == 0:
             return
@@ -344,7 +410,7 @@ class OpenVLAAttacker:
         patch = state.patch.cpu().numpy()
         if best_key in avg and best_sign * avg[best_key] < self.best:
             self.best = best_sign * avg[best_key]
-            save_checkpoint(self.save_dir, str(step), patch, adv_images=adv_images)
-        save_checkpoint(self.save_dir, "last", patch, adv_images=adv_images)
-        plot_loss_curve(self.histories.get("train_CE_loss", []), self.save_dir)
-        save_history_pickles(self.save_dir, self.histories)
+            self._write(save_checkpoint, self.save_dir, str(step), patch, adv_images=adv_images)
+        self._write(save_checkpoint, self.save_dir, "last", patch, adv_images=adv_images)
+        self._write(plot_loss_curve, self.histories.get("train_CE_loss", []), self.save_dir)
+        self._write(save_history_pickles, self.save_dir, self.histories)

@@ -12,6 +12,14 @@ The random draws are an argument (`StepDraws`): per inner step the batch's
 placements and matrices (ops/patch_ops.py `PatchDraws`), and the coin of
 `change_target` for `upa_guide`. `draw_step` draws them from a
 `torch.Generator`; the tests replay the JAX package's draws instead.
+
+Data parallelism (`mesh`, parallel/mesh.py): each rank holds its rows of
+the batch and is given the GLOBAL batch's draws, of which it takes its
+rows. The objective becomes the global-batch objective through one
+all-reduce of its packed sums (losses.py `global_sums`), and one all-reduce
+of the patch gradient sums the ranks' contributions: the step at any world
+size is the single-process step on the whole batch (the JAX package's step
+on a sharded batch).
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import torch
 from ..models.config import VLAConfig, torch_dtype
 from ..models.vlm import vla_forward
 from ..ops.patch_ops import PatchDraws, apply_patch_batch, draw_patch_params
+from ..parallel.mesh import all_gather_rows, all_reduce_sum, shard_batch
 from ..utils.action_tokenizer import decode_tokens
 from ..utils.constants import ACTION_TOKEN_ZERO
 from ..utils.labels import change_target, draw_coin, mask_labels, overwrite_with_target
@@ -31,11 +40,11 @@ from ..utils.normalization import dual_normalize
 from .losses import (
     action_preds_and_mask,
     clip_grad_l1,
+    global_sums,
+    local_sums,
+    loss_from_sums,
     per_dim_relative_distance,
     per_example_metrics,
-    tma_metrics,
-    uada_loss,
-    upa_loss,
 )
 from .optimizer import AdamState, adam_init, adamw_update, pgd_update
 
@@ -113,23 +122,16 @@ def draw_step(gen: Optional[torch.Generator], spec: AttackSpec, images_shape, pa
     )
 
 
-def _objective_loss(spec: AttackSpec, cfg: VLAConfig, out, labels) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    ce = out.loss
-    if spec.objective == "tma":
-        m = tma_metrics(out.logits, labels, ce, cfg)
-        return ce, {"ce": ce, "l1": m.l1, "asr": m.asr, "rel_dist": m.relative_distance}
-    if spec.objective == "uada":
-        r = uada_loss(out.logits, labels, ce, cfg, mse_weight=spec.mse_weight,
-                      add_inverse_ce=spec.add_inverse_ce)
-        return r.loss, {"ce": ce, "mse_distance": r.mse_distance, "uad": r.uad}
-    if spec.objective == "upa":
-        r = upa_loss(out.logits, labels, ce, cfg, alpha=spec.upa_alpha, beta=spec.upa_beta)
-        return r.loss, {"ce": ce, "angle": r.angle_loss, "distance": r.distance_loss}
-    if spec.objective == "upa_guide":
-        return ce, {"ce": ce}
-    if spec.objective == "upa_negce":
-        return -ce, {"ce": ce}
-    raise ValueError(f"unknown objective {spec.objective}")
+def _objective_loss(spec: AttackSpec, cfg: VLAConfig, logits, labels, reduce=None,
+                    extra: Optional[Dict[str, torch.Tensor]] = None):
+    """(loss, metrics, sums) of the objective over this batch, or, with
+    `reduce` (the all-reduce of a packed vector of sums), over the global
+    batch. `extra` sums ride in the same reduce."""
+    local = local_sums(spec.objective, logits, labels, cfg, spec.mse_weight)
+    local.update(extra or {})
+    sums = global_sums(local, reduce)
+    loss, metrics = loss_from_sums(spec.objective, sums, spec.add_inverse_ce, spec.upa_alpha, spec.upa_beta)
+    return loss, metrics, sums
 
 
 def prepare_labels(spec: AttackSpec, labels, target, maskidx, coin):
@@ -146,27 +148,54 @@ def prepare_labels(spec: AttackSpec, labels, target, maskidx, coin):
     return labels  # upa reverse direction keeps the raw labels
 
 
+def mesh_reducer(mesh):
+    """The packed-sums reduce of `mesh` (None without one)."""
+    return None if mesh is None else (lambda v: all_reduce_sum(v, mesh))
+
+
 def patch_loss_and_grad(spec: AttackSpec, cfg: VLAConfig, params: Dict, patch: torch.Tensor,
-                        batch: AttackBatch, labels, draws: PatchDraws):
+                        batch: AttackBatch, labels, draws: PatchDraws, mesh=None):
     """The objective of one inner step and its gradient with respect to the
-    patch pixels alone: (loss, metrics, grad)."""
+    patch pixels alone: (loss, metrics, grad). With a mesh, `batch`,
+    `labels` and `draws` are this rank's rows, and the loss, metrics and
+    gradient are the global batch's (one all-reduce of the packed sums, one
+    of the gradient)."""
+    reduce = mesh_reducer(mesh)
     patch = patch.detach().requires_grad_(True)
     with torch.enable_grad():
         patched = apply_patch_batch(batch.images, patch, draws, geometry=spec.geometry,
                                     resize_patch=spec.resize_patch)
         pixels = dual_normalize(patched).to(torch_dtype(cfg))
-        out = vla_forward(params, cfg, batch.input_ids, batch.attention_mask, pixels, labels)
-        loss, metrics = _objective_loss(spec, cfg, out, labels)
+        # the CE comes from the objective's sums, not out.loss
+        out = vla_forward(params, cfg, batch.input_ids, batch.attention_mask, pixels, None)
+        loss, metrics, _ = _objective_loss(spec, cfg, out.logits, labels, reduce)
         if spec.objective == "tma":
             loss = loss / spec.accumulate_steps
         (grad,) = torch.autograd.grad(loss, patch)
+    if mesh is not None:
+        grad = all_reduce_sum(grad, mesh)
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grad
+
+
+def update_patch(spec: AttackSpec, state: AttackState, grad: torch.Tensor, lr) -> Tuple[AttackState, torch.Tensor]:
+    """The patch update of a (summed or reduced) gradient: the L1 clip,
+    AdamW or PGD, the clamp to [0, 1] and an emptied accumulation buffer.
+    Returns the new state and the gradient the optimizer took."""
+    if spec.grad_clip_l1 is not None:
+        grad = clip_grad_l1(grad, spec.grad_clip_l1)
+    if spec.optimizer == "adamW":
+        new_patch, opt = adamw_update(grad, state.opt, state.patch, lr)
+    elif spec.optimizer == "pgd":
+        new_patch, opt = pgd_update(grad, state.patch, spec.pgd_alpha), state.opt
+    else:
+        raise ValueError(f"unknown optimizer {spec.optimizer}")
+    return AttackState(patch=new_patch.clamp(0.0, 1.0), opt=opt, grad_acc=torch.zeros_like(grad)), grad
 
 
 def _inner_step(spec: AttackSpec, cfg: VLAConfig, params: Dict, state: AttackState,
                 batch: AttackBatch, labels, lr, apply_update: bool,
-                draws: PatchDraws) -> Tuple[AttackState, Dict[str, torch.Tensor]]:
-    loss, metrics, grad = patch_loss_and_grad(spec, cfg, params, state.patch, batch, labels, draws)
+                draws: PatchDraws, mesh=None) -> Tuple[AttackState, Dict[str, torch.Tensor]]:
+    loss, metrics, grad = patch_loss_and_grad(spec, cfg, params, state.patch, batch, labels, draws, mesh)
     metrics.update(loss=loss, grad_mean=grad.mean())
 
     grad_total = state.grad_acc + grad
@@ -176,17 +205,7 @@ def _inner_step(spec: AttackSpec, cfg: VLAConfig, params: Dict, state: AttackSta
         return AttackState(patch=state.patch, opt=state.opt, grad_acc=grad_total), metrics
     # clip only at update time; clipping the running buffer each inner step
     # would rescale earlier contributions again and again
-    update_grad = grad_total
-    if spec.grad_clip_l1 is not None:
-        update_grad = clip_grad_l1(grad_total, spec.grad_clip_l1)
-    if spec.optimizer == "adamW":
-        new_patch, opt = adamw_update(update_grad, state.opt, state.patch, lr)
-    elif spec.optimizer == "pgd":
-        new_patch, opt = pgd_update(update_grad, state.patch, spec.pgd_alpha), state.opt
-    else:
-        raise ValueError(f"unknown optimizer {spec.optimizer}")
-    return AttackState(patch=new_patch.clamp(0.0, 1.0), opt=opt,
-                       grad_acc=torch.zeros_like(grad_total)), metrics
+    return update_patch(spec, state, grad_total, lr)[0], metrics
 
 
 def target_tensor(target_tokens, device):
@@ -194,46 +213,77 @@ def target_tensor(target_tokens, device):
 
 
 def make_attack_step(spec: AttackSpec, cfg: VLAConfig, target_tokens: Optional[np.ndarray],
-                     maskidx: Sequence[int]):
+                     maskidx: Sequence[int], mesh=None):
     """step(params, state, batch, lr, apply_update, draws) -> (state,
-    metrics), each metric stacked over the inner steps ([inner_loop])."""
+    metrics), each metric stacked over the inner steps ([inner_loop]).
+    With a mesh, `batch` is this rank's rows and `draws` the global
+    batch's."""
     maskidx = tuple(maskidx)
 
     def step(params: Dict, state: AttackState, batch: AttackBatch, lr: float,
              apply_update: bool, draws: StepDraws):
         if len(draws.inner) != spec.inner_loop:
             raise ValueError(f"{len(draws.inner)} inner draws for inner_loop={spec.inner_loop}")
+        if mesh is not None:
+            draws = shard_batch(draws, mesh)
         dev = batch.images.device
         labels = prepare_labels(spec, batch.labels, target_tensor(target_tokens, dev), maskidx, draws.coin)
         lr_t = torch.tensor(lr, dtype=torch.float32, device=dev)
         history: List[Dict[str, torch.Tensor]] = []
         for d in draws.inner:
             state, metrics = _inner_step(spec, cfg, params, state, batch, labels, lr_t,
-                                         bool(apply_update), d)
+                                         bool(apply_update), d, mesh)
             history.append(metrics)
         return state, {k: torch.stack([h[k] for h in history]) for k in history[0]}
 
     return step
 
 
+def _gather_per_example(metrics: Dict[str, torch.Tensor], keys, mesh) -> None:
+    """Replace each per-example [B_local] entry of `metrics` by the global
+    batch's [B], through ONE all-gather of the packed f32 rows (token ids
+    and flags are exact in f32)."""
+    packed = torch.stack([metrics[k].float() for k in keys], dim=1)
+    rows = all_gather_rows(packed, mesh)
+    for i, k in enumerate(keys):
+        metrics[k] = rows[:, i].to(metrics[k].dtype)
+
+
 def make_val_step(spec: AttackSpec, cfg: VLAConfig, target_tokens: Optional[np.ndarray],
-                  maskidx: Sequence[int]):
+                  maskidx: Sequence[int], mesh=None):
     """No-grad scorer of the eval cadence: val(params, patch, batch, draws)
     -> scalar metrics plus per-example extras (`ex_*`), the gripper tokens
     against the original labels, and the patched images (`_patched_images`).
     `draws` is a StepDraws with one PatchDraws. The clean-image gripper
-    filter is its own step (make_clean_filter_step)."""
+    filter is its own step (make_clean_filter_step). With a mesh, `batch`
+    is this rank's rows and `draws` the global batch's: the scalars come
+    from the global sums (one all-reduce) and the per-example entries are
+    gathered (one all-gather), so every rank holds what one process
+    computes on the whole batch; `_patched_images` stays this rank's rows."""
     maskidx = tuple(maskidx)
+    reduce = mesh_reducer(mesh)
 
     @torch.no_grad()
     def val(params: Dict, patch: torch.Tensor, batch: AttackBatch, draws: StepDraws):
+        if mesh is not None:
+            draws = shard_batch(draws, mesh)
         labels = prepare_labels(spec, batch.labels, target_tensor(target_tokens, batch.images.device),
                                  maskidx, draws.coin)
         patched = apply_patch_batch(batch.images, patch, draws.inner[0], geometry=spec.geometry,
                                     resize_patch=spec.resize_patch)
         pixels = dual_normalize(patched).to(torch_dtype(cfg))
-        out = vla_forward(params, cfg, batch.input_ids, batch.attention_mask, pixels, labels)
-        loss, metrics = _objective_loss(spec, cfg, out, labels)
+        out = vla_forward(params, cfg, batch.input_ids, batch.attention_mask, pixels, None)
+        rd = {}
+        if spec.objective == "uada" and len(maskidx) > 0:
+            preds, gt, mask = action_preds_and_mask(out.logits, labels, cfg)
+            gt_act = decode_tokens(torch.where(mask, gt, torch.full_like(gt, ACTION_TOKEN_ZERO)))
+            rd = per_dim_relative_distance(decode_tokens(preds), gt_act, mask, maskidx)
+        # the per-dim means ride in the objective's reduce as row sums
+        rows = float(batch.images.shape[0])
+        extra = {f"rd_{k}": v * rows for k, v in rd.items()}
+        extra["rd_rows"] = torch.tensor(rows, device=batch.images.device)
+        loss, metrics, sums = _objective_loss(spec, cfg, out.logits, labels, reduce, extra)
+        rd = {k: sums[f"rd_{k}"] / sums["rd_rows"] for k in rd}
         metrics = dict(metrics, loss=loss)
 
         base_obj = "upa" if spec.objective.startswith("upa") else spec.objective
@@ -247,20 +297,21 @@ def make_val_step(spec: AttackSpec, cfg: VLAConfig, target_tokens: Optional[np.n
         metrics["gripper_gt_token"] = torch.gather(o_gt, 1, grip_slot)[:, 0]
         metrics["clean_gripper_correct"] = torch.ones(batch.images.shape[0], dtype=torch.bool,
                                                       device=batch.images.device)
-        if spec.objective == "uada" and len(maskidx) > 0:
-            preds, gt, mask = action_preds_and_mask(out.logits, labels, cfg)
-            gt_act = decode_tokens(torch.where(mask, gt, torch.full_like(gt, ACTION_TOKEN_ZERO)))
-            rd = per_dim_relative_distance(decode_tokens(preds), gt_act, mask, maskidx)
-            metrics.update({f"rd_{k}": v for k, v in rd.items()})
+        if mesh is not None:
+            per_row = [k for k in metrics if k.startswith("ex_")]
+            _gather_per_example(metrics, per_row + ["gripper_pred_token", "gripper_gt_token",
+                                                    "clean_gripper_correct"], mesh)
+        metrics.update({f"rd_{k}": v for k, v in rd.items()})
         metrics["_patched_images"] = patched
         return metrics
 
     return val
 
 
-def make_clean_filter_step(cfg: VLAConfig):
+def make_clean_filter_step(cfg: VLAConfig, mesh=None):
     """No-grad clean-image gripper pre-filter: per example, whether the
-    gripper token predicted on the UNPATCHED image is correct."""
+    gripper token predicted on the UNPATCHED image is correct (with a mesh,
+    gathered over the global batch)."""
 
     @torch.no_grad()
     def clean(params: Dict, batch: AttackBatch) -> torch.Tensor:
@@ -268,6 +319,7 @@ def make_clean_filter_step(cfg: VLAConfig):
         out = vla_forward(params, cfg, batch.input_ids, batch.attention_mask, pixels, None)
         c_preds, c_gt, c_mask = action_preds_and_mask(out.logits, batch.labels, cfg)
         last = torch.argsort((~c_mask).to(torch.uint8), dim=-1, stable=True)[:, 6:7]
-        return torch.gather(c_preds, 1, last)[:, 0] == torch.gather(c_gt, 1, last)[:, 0]
+        ok = torch.gather(c_preds, 1, last)[:, 0] == torch.gather(c_gt, 1, last)[:, 0]
+        return ok if mesh is None else all_gather_rows(ok, mesh)
 
     return clean

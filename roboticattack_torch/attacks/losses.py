@@ -11,7 +11,7 @@ Conventions:
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -79,6 +79,93 @@ def _expectation(sl: torch.Tensor, weights_over: float) -> torch.Tensor:
     return (probs * reweigh).sum(dim=-1)
 
 
+# --- the objectives as sums --------------------------------------------------------
+#
+# Every objective and metric is a ratio of a few sums over the batch. The
+# step computes this batch's sums (`local_sums`), reduces them (`global_sums`:
+# locally, or under data parallelism with one all-reduce of the packed
+# vector) and forms the loss and metrics from them (`loss_from_sums`). With
+# `S_local + (S_global - S_local).detach()` each loss is the global-batch
+# loss while its gradient stays this rank's contribution: the ranks'
+# gradients then sum to the whole batch's (the JAX package's sharded step).
+
+def local_sums(objective: str, logits, labels, cfg: VLAConfig, mse_weight: float = 5.0) -> Dict[str, torch.Tensor]:
+    """This batch's sums behind `objective`'s loss and metrics: the CE's
+    NLL sum and valid-token count (the arithmetic of cross_entropy_loss),
+    and each masked or row mean's numerator and count."""
+    sl = shifted_action_logits(logits, cfg, labels.shape[1])
+    gt = labels[:, 1:]
+    valid = gt != IGNORE_INDEX
+    safe = torch.where(valid, gt, torch.zeros_like(gt)).long()
+    tok = torch.gather(torch.log_softmax(sl, dim=-1), -1, safe[..., None])[..., 0]
+    out = {"nll": -torch.where(valid, tok, torch.zeros_like(tok)).sum(), "n_valid": valid.sum()}
+    mask = gt > ACTION_TOKEN_BEGIN_IDX
+    m = mask.float()
+    if objective == "tma":
+        pred_act = decode_tokens(sl.argmax(dim=-1))
+        gt_act = _decode_gt(gt, mask)
+        diff = (pred_act - gt_act).abs()
+        row_any = mask.any(dim=-1).float()
+        out.update(l1=(diff * m).sum(), n_action=m.sum(),
+                   rel=(diff / torch.maximum(1.0 - gt_act, gt_act + 1.0) * m).sum(),
+                   ok_rows=(((pred_act == gt_act) | ~mask).all(dim=-1).float() * row_any).sum(),
+                   any_rows=row_any.sum())
+    elif objective == "uada":
+        expectation = _expectation(sl, float(N_ACTION_BINS))
+        hard = torch.where(gt > ACTION_TOKEN_ZERO, 0.0, 1.0)
+        action_slice = sl[..., ACTION_TOKEN_MIN : ACTION_TOKEN_MIN + N_ACTION_BINS]
+        pred_act = decode_tokens(action_slice.argmax(dim=-1) + ACTION_TOKEN_MIN)
+        gt_act = _decode_gt(gt, mask)
+        max_distance = torch.where(gt_act > 0, (gt_act + 1.0).abs(), (gt_act - 1.0).abs())
+        out.update(sq=(((mse_weight * expectation - mse_weight * hard) ** 2) * m).sum(), n_action=m.sum(),
+                   uad=((pred_act - gt_act).abs() / max_distance * m).sum())
+    elif objective == "upa":
+        xyz_pred, xyz_gt = _xyz(_expectation(sl, 1.0), gt, mask)
+        out.update(angle=(cosine_similarity(xyz_pred, xyz_gt) + 1.0).sum(),
+                   dist=torch.linalg.vector_norm(xyz_pred - xyz_gt, dim=-1).sum(),
+                   rows=torch.tensor(float(gt.shape[0]), device=gt.device))
+    return out
+
+
+def global_sums(local: Dict[str, torch.Tensor], reduce=None) -> Dict[str, torch.Tensor]:
+    """Each sum in f32, reduced through ONE `reduce` of the packed vector
+    (the all-reduce of a mesh; no autograd through it) when there is one:
+    the value of each is then the global sum, its gradient the local
+    sum's."""
+    if reduce is None:
+        return {k: v.float() for k, v in local.items()}
+    keys = list(local)
+    total = reduce(torch.stack([local[k].detach().float() for k in keys]))
+    return {k: local[k].float() + (total[i] - local[k].detach().float()) for i, k in enumerate(keys)}
+
+
+def loss_from_sums(objective: str, s: Dict[str, torch.Tensor], add_inverse_ce: bool = True,
+                   alpha: float = 0.8, beta: float = 0.2,
+                   ce: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, metrics) of `objective` from its sums, the CE from the NLL
+    sum unless `ce` is given."""
+    if ce is None:
+        ce = s["nll"] / s["n_valid"].clamp(min=1.0)
+    if objective == "tma":
+        n = s["n_action"].clamp(min=1.0)
+        return ce, {"ce": ce, "l1": s["l1"] / n, "asr": s["ok_rows"] / s["any_rows"].clamp(min=1.0),
+                    "rel_dist": s["rel"] / n}
+    if objective == "uada":
+        n = s["n_action"].clamp(min=1.0)
+        mse = s["sq"] / n
+        loss = mse + (1.0 / ce if add_inverse_ce else 0.0)
+        return loss, {"ce": ce, "mse_distance": mse, "uad": s["uad"] / n}
+    if objective == "upa":
+        angle = s["angle"] / s["rows"]
+        distance = 1.0 / (s["dist"] / s["rows"] + 1e-3)
+        return alpha * angle + beta * distance, {"ce": ce, "angle": angle, "distance": distance}
+    if objective == "upa_guide":
+        return ce, {"ce": ce}
+    if objective == "upa_negce":
+        return -ce, {"ce": ce}
+    raise ValueError(f"unknown objective {objective}")
+
+
 # --- TMA -----------------------------------------------------------------------
 
 def relative_distance_target(pred_actions, gt_actions, mask) -> torch.Tensor:
@@ -95,14 +182,8 @@ class TMAMetrics(NamedTuple):
 
 
 def tma_metrics(logits, target_labels, ce_loss, cfg: VLAConfig) -> TMAMetrics:
-    preds, gt, mask = action_preds_and_mask(logits, target_labels, cfg)
-    pred_act = decode_tokens(preds)
-    gt_act = _decode_gt(gt, mask)
-    l1 = _masked_mean((pred_act - gt_act).abs(), mask)
-    rel = relative_distance_target(pred_act, gt_act, mask)
-    per_tok_ok = (pred_act == gt_act) | ~mask
-    asr = _masked_mean(per_tok_ok.all(dim=-1).float(), mask.any(dim=-1))
-    return TMAMetrics(ce_loss=ce_loss, l1=l1, asr=asr, relative_distance=rel)
+    _, m = loss_from_sums("tma", global_sums(local_sums("tma", logits, target_labels, cfg)), ce=ce_loss)
+    return TMAMetrics(ce_loss=ce_loss, l1=m["l1"], asr=m["asr"], relative_distance=m["rel_dist"])
 
 
 def gripper_asr_counts(preds, gt, mask) -> Dict[str, torch.Tensor]:
@@ -135,22 +216,9 @@ def uada_loss(logits, labels, ce_loss, cfg: VLAConfig, mse_weight: float = 5.0,
     the hard target is 0.0 for negative gt actions (the reference's int64
     truncation of 1/256) and 1.0 otherwise; loss = MSE(w E, w target), plus
     1/CE when `add_inverse_ce`."""
-    sl = shifted_action_logits(logits, cfg, labels.shape[1])
-    gt = labels[:, 1:]
-    mask = gt > ACTION_TOKEN_BEGIN_IDX
-    expectation = _expectation(sl, float(N_ACTION_BINS))
-    hard_target = torch.where(gt > ACTION_TOKEN_ZERO, 0.0, 1.0)
-    sq = (mse_weight * expectation - mse_weight * hard_target) ** 2
-    mse_distance = _masked_mean(sq, mask)
-
-    action_slice = sl[..., ACTION_TOKEN_MIN : ACTION_TOKEN_MIN + N_ACTION_BINS]
-    pred_act = decode_tokens(action_slice.argmax(dim=-1) + ACTION_TOKEN_MIN)
-    gt_act = _decode_gt(gt, mask)
-    max_distance = torch.where(gt_act > 0, (gt_act + 1.0).abs(), (gt_act - 1.0).abs())
-    uad = _masked_mean((pred_act - gt_act).abs() / max_distance, mask)
-
-    loss = mse_distance + (1.0 / ce_loss if add_inverse_ce else 0.0)
-    return UADAResult(loss=loss, mse_distance=mse_distance, uad=uad, ce_loss=ce_loss)
+    loss, m = loss_from_sums("uada", global_sums(local_sums("uada", logits, labels, cfg, mse_weight)),
+                             add_inverse_ce, ce=ce_loss)
+    return UADAResult(loss=loss, mse_distance=m["mse_distance"], uad=m["uad"], ce_loss=ce_loss)
 
 
 # --- UPA -----------------------------------------------------------------------
@@ -174,13 +242,9 @@ def _xyz(expectation: torch.Tensor, gt: torch.Tensor, is_action: torch.Tensor):
 def upa_loss(logits, labels, ce_loss, cfg: VLAConfig, alpha: float = 0.8, beta: float = 0.2) -> UPAResult:
     """UPA reverse-direction loss: the predicted xyz direction anti-parallel
     (cos-sim -> -1) and far (1/dist -> 0) from the gt."""
-    sl = shifted_action_logits(logits, cfg, labels.shape[1])
-    gt = labels[:, 1:]
-    xyz_pred, xyz_gt = _xyz(_expectation(sl, 1.0), gt, gt > ACTION_TOKEN_BEGIN_IDX)
-    angle_loss = (cosine_similarity(xyz_pred, xyz_gt) + 1.0).mean()
-    distance_loss = 1.0 / (torch.linalg.vector_norm(xyz_pred - xyz_gt, dim=-1).mean() + 1e-3)
-    loss = alpha * angle_loss + beta * distance_loss
-    return UPAResult(loss=loss, angle_loss=angle_loss, distance_loss=distance_loss, ce_loss=ce_loss)
+    loss, m = loss_from_sums("upa", global_sums(local_sums("upa", logits, labels, cfg)),
+                             alpha=alpha, beta=beta, ce=ce_loss)
+    return UPAResult(loss=loss, angle_loss=m["angle"], distance_loss=m["distance"], ce_loss=ce_loss)
 
 
 # --- per-dim relative distance (UADA logging) ------------------------------------

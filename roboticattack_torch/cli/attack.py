@@ -1,5 +1,6 @@
 """Attack CLI of the port: the JAX package's `cli/attack.py` flag surface over
-the PyTorch runner, on one CUDA device (or the CPU with `--device cpu`).
+the PyTorch runner, on one CUDA device (or the CPU with `--device cpu`), or
+data-parallel over the ranks of a `torchrun` launch.
 
 Examples:
   python -m roboticattack_torch.cli.attack --attack uada --model openvla-7b \\
@@ -11,6 +12,8 @@ Examples:
   python -m roboticattack_torch.cli.attack --attack uada --model openvla-7b \\
       --dataset bridge_orig --data_dir /data/rlds --file_layer native \\
       --stats_json dataset_statistics.json --iter 3 --innerLoop 2 --bs 8
+  torchrun --nproc_per_node 2 -m roboticattack_torch.cli.attack --attack uada \\
+      --model openvla-7b --dataset dummy --data_parallel true --bs 8 --iter 3
 
 Weights come from --checkpoint (a local HF OpenVLA checkpoint directory,
 converted on the device; the batches then take its tokenizer), else they are
@@ -19,9 +22,17 @@ TFDS layout under --data_dir by the --file_layer reader: `tfrecord` (plain
 tf.data; statistics computed from the shards unless --stats_json gives
 them), `native` (the C++ reader, no TensorFlow on the hot path; needs
 --stats_json) or `tf` (the TFDS builder; needs tensorflow_datasets). The run
-dir then holds the statistics as dataset_statistics.json. --data_parallel /
---ddp_semantics exact and --profile raise: they are not ported yet
-(ROADMAP.md queue A).
+dir then holds the statistics as dataset_statistics.json.
+
+--data_parallel true joins the process group (parallel/distributed.py:
+torchrun's environment, else a world of one; gloo on the CPU or when ranks
+outnumber the cards, else NCCL) and splits every global batch of --bs rows
+over the ranks. As in the reference's DDP variant UADA drops its +1/CE term
+and the eval cadence defaults to 200. --ddp_semantics gspmd (default) makes
+the global-batch loss; exact averages per-rank gradients (attacks/ddp.py).
+Rank 0 writes every file; at the end each rank prints one `ddp rank` line
+with the SHA-256 of its final patch. --profile DIR traces step 1 into
+DIR/trace_rank<r>.json.
 """
 
 from __future__ import annotations
@@ -29,9 +40,8 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 import uuid
-
-from .. import not_ported
 
 
 def list_of_ints(arg: str):
@@ -80,7 +90,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint", default=None, type=str,
                    help="local HF OpenVLA checkpoint dir (safetensors shards)")
     p.add_argument("--data_parallel", type=str2bool, default=False,
-                   help="data-parallel attack over the local devices (not ported)")
+                   help="data-parallel attack over the ranks of the process group (torchrun)")
     p.add_argument("--file_layer", default="tf", choices=["tf", "tfrecord", "native"],
                    help="RLDS reader of a real dataset: the TFDS builder (tf), plain tf.data over "
                         "the on-disk shards (tfrecord) or the C++ reader (native)")
@@ -91,11 +101,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--shuffle_buffer", default=100_000, type=int,
                    help="frame shuffle-buffer size of a real dataset")
     p.add_argument("--ddp_semantics", default="gspmd", choices=["gspmd", "exact"],
-                   help="gradient sync of the data-parallel attack (not ported)")
+                   help="gradient sync of the data-parallel attack: the global-batch loss "
+                        "(gspmd) or the mean of per-rank gradients (exact, torch DDP)")
     p.add_argument("--eval_every", default=None, type=int)
     p.add_argument("--eval_batches", default=None, type=int)
     p.add_argument("--output", default=None, type=str, help="run dir (default run/<attack>/<uuid>)")
-    p.add_argument("--profile", default=None, type=str, help="trace one step to this dir (not ported)")
+    p.add_argument("--profile", default=None, type=str, help="trace step 1 to DIR/trace_rank<r>.json (torch.profiler)")
     p.add_argument("--resume", default=None, type=str,
                    help="resume patch + optimizer state from a previous run dir")
     p.add_argument("--pad_to", default=32, type=int,
@@ -119,14 +130,6 @@ def resolve_objective(args) -> str:
     if args.attack == "upa" and not args.reverse_direction:
         return "upa_negce"
     return args.attack
-
-
-def check_ported(args) -> None:
-    """Raise for every option whose code is not ported yet."""
-    if args.data_parallel or args.ddp_semantics == "exact":
-        raise not_ported("--data_parallel / --ddp_semantics exact", "slice 2 item 7: data-parallel attack")
-    if args.profile:
-        raise not_ported("--profile", "slice 7: training and infra (utils/profiling.py)")
 
 
 def make_data(args, cfg):
@@ -173,7 +176,32 @@ def make_data(args, cfg):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    check_ported(args)
+    if args.data_parallel and args.ddp_semantics == "exact" and args.accumulate != 1:
+        # refused before anything is written (attacks/ddp.py refuses it too)
+        raise NotImplementedError("--ddp_semantics exact takes --accumulate 1 only, as the "
+                                  "reference DDP variant (UADA_ddp.py) has no accumulation")
+    from ..parallel import distributed
+    from ..utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    mesh, owns_group = None, False
+    if args.data_parallel:
+        from ..parallel import make_mesh
+
+        owns_group = distributed.current() is None
+        distributed.initialize_multihost(device=args.device)
+        mesh = make_mesh(device=args.device)
+        device = mesh.device
+    try:
+        return run(args, device, mesh)
+    finally:
+        if owns_group:
+            distributed.shutdown()
+
+
+def run(args, device, mesh):
+    """The attack of parsed `args` on `device`, data-parallel over `mesh`
+    when there is one."""
     import torch
 
     from ..attacks.attacker import AttackConfig, OpenVLAAttacker
@@ -182,22 +210,27 @@ def main(argv=None):
     from ..models.config import torch_dtype
     from ..models.convert import cast_tree, load_checkpoint_dir
     from ..models.vlm import init_vla_params
-    from ..utils.device import resolve_device
+    from ..parallel import broadcast_object, patch_digest, process_zero
     from ..utils.tracking import Tracker
 
-    device = resolve_device(args.device)
     exp_id = str(uuid.uuid4())
+    if mesh is not None:  # one run, one run dir: rank 0's id
+        exp_id = broadcast_object(exp_id, mesh)
     model_name = args.model or dataset_to_model(args.dataset)
     cfg = get_config(model_name)
     objective = resolve_objective(args)
     if args.checkpoint:  # before the run dir: a missing checkpoint leaves nothing behind
         params = cast_tree(load_checkpoint_dir(args.checkpoint, cfg, device), torch_dtype(cfg))
-    # the data too: a dataset that cannot be read leaves nothing behind
+    # the data too: a dataset that cannot be read leaves nothing behind.
+    # Every rank builds the same global stream; --bs is the global batch.
     train, val, data_counters, stats_sink = make_data(args, cfg)
     out_dir = args.output or os.path.join(args.server, "run", objective, exp_id)
-    os.makedirs(out_dir, exist_ok=True)
-    if stats_sink:  # what the eval side unnormalizes with
-        save_reference_statistics(stats_sink, os.path.join(out_dir, "dataset_statistics.json"))
+    writes = 0  # this process's writes under out_dir, with the runner's and the tracker's
+    if process_zero():
+        os.makedirs(out_dir, exist_ok=True)
+        if stats_sink:  # what the eval side unnormalizes with
+            save_reference_statistics(stats_sink, os.path.join(out_dir, "dataset_statistics.json"))
+        writes += 1 + bool(stats_sink)
 
     target = "".join(str(i) for i in args.maskidx)
     run_name = (
@@ -212,9 +245,10 @@ def main(argv=None):
         config=dict(iteration=args.iter, learning_rate=args.lr,
                     attack_target=args.maskidx, accumulate_steps=args.accumulate),
     )
-    print(f"exp_id:{exp_id}\nrun dir: {out_dir}\nmodel: {model_name} ({cfg.name}) on {device}")
+    if process_zero():
+        print(f"exp_id:{exp_id}\nrun dir: {out_dir}\nmodel: {model_name} ({cfg.name}) on {device}")
     if not args.checkpoint:
-        if cfg.name.startswith("openvla"):
+        if cfg.name.startswith("openvla") and process_zero():
             print("WARNING: no --checkpoint given; using random weights (smoke mode)")
         params = init_vla_params(torch.Generator(device=device).manual_seed(args.seed), cfg)
 
@@ -233,19 +267,39 @@ def main(argv=None):
         resize_patch=args.resize_patch,
         target_action=args.targetAction,
         mse_weight=args.MSE_weights,
-        add_inverse_ce=True,
+        add_inverse_ce=not args.data_parallel,  # the DDP variant drops +1/CE (UADA_ddp.py:204)
         upa_alpha=args.alpha,
         upa_beta=args.belta,
-        eval_every=args.eval_every or 100,
+        eval_every=args.eval_every or (200 if args.data_parallel else 100),
         eval_batches=args.eval_batches or (1000 if objective == "uada" else 100),
         seed=args.seed,
+        ddp_semantics=args.ddp_semantics if args.data_parallel else "gspmd",
     )
-    runner = OpenVLAAttacker(params, cfg, out_dir, attack, tracker=tracker,
+    runner = OpenVLAAttacker(params, cfg, out_dir, attack, mesh=mesh, tracker=tracker,
                              data_counters=data_counters)
-    result = runner.run(train, val, resume_from=args.resume)
+    rank_memory = mesh is not None and device.type == "cuda"
+    if rank_memory:  # the weights' build apart from the attack's own peak
+        init_peak = torch.cuda.max_memory_allocated(device) / 2**30
+        torch.cuda.reset_peak_memory_stats(device)
+    result = runner.run(train, val, profile_dir=args.profile, resume_from=args.resume)
     tracker.close()
-    print(f"Attack done! best {attack.objective} val metric: {result.best_metric:.6g}")
-    print(f"patch artifacts under {out_dir}")
+    if process_zero():
+        print(f"Attack done! best {attack.objective} val metric: {result.best_metric:.6g}")
+        print(f"patch artifacts under {out_dir}")
+    if mesh is not None:
+        from ..ops.flash_attention import flash_attention
+
+        line = {"rank": mesh.rank, "world": mesh.size, "backend": torch.distributed.get_backend(),
+                "device": str(device), "patch_sha256": patch_digest(result.patch),
+                "writes": writes + runner.writes + tracker.writes,
+                "step_mean_s": result.timing.get("mean_s"), "step_p50_s": result.timing.get("p50_s"),
+                "flash_attention_launches": dict(flash_attention.launches)}
+        if rank_memory:
+            line.update(init_peak_gib=init_peak, run_peak_gib=torch.cuda.max_memory_allocated(device) / 2**30)
+        # one write: the ranks share a stdout pipe, and print's text and
+        # newline are two writes when stdout is unbuffered
+        sys.stdout.write(f"ddp rank {mesh.rank}/{mesh.size}: {json.dumps(line)}\n")
+        sys.stdout.flush()
     return result
 
 

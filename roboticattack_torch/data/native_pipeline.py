@@ -26,7 +26,7 @@ from __future__ import annotations
 import glob
 import os
 import random
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -198,8 +198,18 @@ class NativeFrameDataset:
         seed: int = 42,
         train: bool = True,
         prefetch_depth: int = 8,
+        records: Tuple[Optional[int], int, Optional[Tuple[int, int]]] = (None, 0, None),
+        num_shards: int = 1,
+        shard_index: int = 0,
+        repeat: Optional[bool] = None,
     ) -> None:
         self.paths = list(paths)
+        # epochs without end (default: in training), else one pass
+        self.repeat = train if repeat is None else repeat
+        # (skip, take, modulus) of data/rlds.py SplitPlan over the records of
+        # `paths`, then every num_shards-th selected record from shard_index
+        self.skip, self.take, self.modulus = records
+        self.num_shards, self.shard_index = num_shards, shard_index
         self.name = name
         self.stats = stats
         self.image_key = image_key
@@ -226,7 +236,18 @@ class NativeFrameDataset:
             while True:
                 reader = NativeRLDSReader(self.paths, prefetch_depth=self.prefetch_depth)
                 got_any = False
-                for ex in reader:
+                selected = 0
+                for i, ex in enumerate(reader):
+                    if self.skip is not None and i >= self.skip + self.take:
+                        ex.close()
+                        break
+                    if not self._selects(i):
+                        ex.close()
+                        continue
+                    selected += 1
+                    if (selected - 1) % self.num_shards != self.shard_index:
+                        ex.close()
+                        continue
                     traj = _episode_to_traj(ex, self.image_key)
                     ex.close()
                     if traj is None:
@@ -247,9 +268,17 @@ class NativeFrameDataset:
                 reader.close()
                 if not got_any:
                     raise RuntimeError(f"no decodable RLDS episodes in {self.paths}")
-                if not self.train:
+                if not self.repeat:
                     return
                 epoch += 1
+
+    def _selects(self, i: int) -> bool:
+        """Whether the split holds record i of `paths`."""
+        if self.skip is not None:
+            return self.skip <= i < self.skip + self.take
+        if self.modulus is not None:
+            return self.modulus[0] <= i % 100 < self.modulus[1]
+        return True
 
     def as_numpy_iterator(self) -> Iterator[Dict]:
         rng = random.Random(self.seed)

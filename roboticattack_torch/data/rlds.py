@@ -30,7 +30,7 @@ import hashlib
 import json
 import os
 import re
-from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -358,24 +358,34 @@ def _parse_split(split: str) -> Tuple[str, Optional[float], Optional[float]]:
     return base, lo_f, hi_f
 
 
-def _tfrecord_records(name: str, data_dir: Optional[str], split: str):
-    """Shared TFDS-on-disk record machinery: shard discovery, exact percent
-    splits, and schema introspection. Returns
-    (records tf.data.Dataset of serialized Examples, builder_info str,
-    feature_map of the first record).
+class SplitPlan(NamedTuple):
+    """The records of a split: `paths` to open in order, then either `skip`
+    records and `take` more (exact percent bounds), or, without
+    dataset_info.json, the records whose index i has lo <= i % 100 < hi
+    (`modulus`), or every record (a whole split)."""
+
+    paths: List[str]
+    skip: Optional[int]
+    take: int
+    modulus: Optional[Tuple[int, int]]
+    builder_info: str
+
+
+def split_plan(name: str, data_dir: Optional[str], split: str) -> SplitPlan:
+    """The TFDS-on-disk split of `split` (no TensorFlow): shard discovery
+    and the exact percent bounds.
 
     Split percent boundaries ('train[:95%]' / 'train[95%:]',
     dataset.py:234-237) are exact when dataset_info.json carries the split's
-    shardLengths (TFDS always writes them); without the file we fall back to
-    a deterministic episode-index modulus (i % 100 < pct), which keeps
+    shardLengths (TFDS always writes them): records [round(lo * total),
+    round(hi * total)), opening only the shards that overlap them. Without
+    the file a deterministic episode-index modulus (i % 100 < pct) keeps
     train/val disjoint but interleaves rather than suffixes the val slice."""
-    tf = _tf()
     from .native_pipeline import discover_tfrecords
 
     base_split, lo, hi = _parse_split(split)
     paths = discover_tfrecords(name, data_dir or ".", split=base_split)
 
-    # --- bounds + builder info from dataset_info.json --------------------------
     info_path = os.path.join(os.path.dirname(paths[0]), "dataset_info.json")
     builder_info, total, shard_lengths = f"name={name}", None, None
     if os.path.exists(info_path):
@@ -392,6 +402,41 @@ def _tfrecord_records(name: str, data_dir: Optional[str], split: str):
                 shard_lengths = [int(n) for n in lengths]
         except (ValueError, AttributeError):
             total = None
+
+    if lo is None:
+        return SplitPlan(paths, None, 0, None, builder_info)
+    if total is None:
+        return SplitPlan(paths, None, 0, (round(lo * 100), round(hi * 100)), builder_info)
+    start, stop = round(lo * total), round(hi * total)
+    take = max(stop - start, 0)
+    split_paths, skip_start = paths, start
+    if shard_lengths is not None:
+        # open only the shards overlapping [start, stop): a repeating val
+        # iterator ('train[95%:]') must not re-read and discard 95% of the
+        # dataset's bytes every epoch
+        split_paths, skip_start, cum = [], None, 0
+        for path, n in zip(paths, shard_lengths):
+            if cum + n > start and cum < stop:
+                if not split_paths:
+                    skip_start = start - cum
+                split_paths.append(path)
+            cum += n
+        skip_start = skip_start or 0
+    if not split_paths:
+        split_paths, take = paths[:1], 0  # empty split: valid empty pipeline
+    return SplitPlan(split_paths, skip_start, take, None, builder_info)
+
+
+def _tfrecord_records(name: str, data_dir: Optional[str], split: str):
+    """Shared TFDS-on-disk record machinery: the split's records
+    (split_plan) and schema introspection. Returns (records tf.data.Dataset
+    of serialized Examples, builder_info str, feature_map of the first
+    record)."""
+    tf = _tf()
+    from .native_pipeline import discover_tfrecords
+
+    plan = split_plan(name, data_dir, split)
+    paths = discover_tfrecords(name, data_dir or ".", split=_parse_split(split)[0])
 
     # schema introspection: TFDS may legitimately write empty leading shards
     # (shardLengths allows 0), so walk shards until a record exists instead of
@@ -410,38 +455,17 @@ def _tfrecord_records(name: str, data_dir: Optional[str], split: str):
         )
     feature_map = tf.train.Example.FromString(first).features.feature
 
-    split_paths, skip_start, take = paths, None, 0
-    if lo is not None and total is not None:
-        # exact TFDS percent-split boundaries
-        start, stop = round(lo * total), round(hi * total)
-        take = max(stop - start, 0)
-        if shard_lengths is not None:
-            # open only the shards overlapping [start, stop): a repeating val
-            # iterator ('train[95%:]') must not re-read and discard 95% of
-            # the dataset's bytes every epoch
-            split_paths, cum = [], 0
-            for path, n in zip(paths, shard_lengths):
-                if cum + n > start and cum < stop:
-                    if not split_paths:
-                        skip_start = start - cum
-                    split_paths.append(path)
-                cum += n
-            skip_start = skip_start or 0
-        else:
-            skip_start = start
-        if not split_paths:
-            split_paths, take = paths[:1], 0  # empty split: valid empty pipeline
-    ds = tf.data.TFRecordDataset(split_paths)  # sorted shards = TFDS storage order
-    if skip_start is not None:
-        ds = ds.skip(skip_start).take(take)
-    elif lo is not None:  # no dataset_info.json: deterministic index-modulus split
-        lo_i, hi_i = round(lo * 100), round(hi * 100)
+    ds = tf.data.TFRecordDataset(plan.paths)  # sorted shards = TFDS storage order
+    if plan.skip is not None:
+        ds = ds.skip(plan.skip).take(plan.take)
+    elif plan.modulus is not None:  # no dataset_info.json: deterministic index-modulus split
+        lo_i, hi_i = plan.modulus
         ds = (
             ds.enumerate()
             .filter(lambda i, _: (i % 100 >= lo_i) & (i % 100 < hi_i))
             .map(lambda _, rec: rec)
         )
-    return ds, builder_info, feature_map
+    return ds, plan.builder_info, feature_map
 
 
 def _image_feature(name: str, feature_map) -> Tuple[str, str]:
@@ -681,24 +705,32 @@ def make_frame_dataset(
                    and JPEG decode run native with NumPy standardization — no
                    TensorFlow on the hot path. Requires `stats` (or a
                    tf-computed cache) and currently covers the attack
-                   datasets (bridge_orig + LIBERO suites)."""
+                   datasets (bridge_orig + LIBERO suites).
+                   It reads the tfrecord layer's split (split_plan:
+                   train[:95%] / train[95%:]) and host shards, and repeats
+                   val as that layer does; the JAX package's native layer
+                   reads the whole train split for both, val once, and
+                   shards by file."""
+    split = "train[:95%]" if train else "train[95%:]"  # dataset.py:234-237
     if file_layer == "native":
         if stats is None:
             raise ValueError(
                 "file_layer='native' needs `stats` (compute once with the tf "
                 "layer or load a reference dataset_statistics.json)"
             )
-        from .native_pipeline import NativeFrameDataset, discover_tfrecords
+        from .native_pipeline import NativeFrameDataset
 
-        paths = discover_tfrecords(name, data_dir or ".", split="train")
-        if num_shards > 1:
-            paths = paths[shard_index::num_shards] or paths[shard_index:shard_index + 1]
+        # the tfrecord layer's episodes: the split's records, then every
+        # num_shards-th of them (its traj_dataset.shard); val repeats as its
+        # frames do (a val split can be one episode)
+        plan = split_plan(name, data_dir, split)
         frames = NativeFrameDataset(
-            paths, name, stats, image_key=dataset_image_key(name),
+            plan.paths, name, stats, image_key=dataset_image_key(name),
             image_size=image_size, shuffle_buffer=shuffle_buffer, seed=seed, train=train,
+            records=(plan.skip, plan.take, plan.modulus), num_shards=num_shards,
+            shard_index=shard_index, repeat=True,
         )
         return frames, stats
-    split = "train[:95%]" if train else "train[95%:]"  # dataset.py:234-237
     builder_info = f"name={name}"
     loader, transform = None, STANDARDIZATION_TRANSFORMS.get(name)
     raw_oxe = (

@@ -311,3 +311,13 @@ def get_action(policy: VLAPolicy, obs: Dict, task_label: str,
     if model_family != "openvla":
         raise ValueError(f"unsupported model family {model_family!r}")
     return policy.get_action(obs["full_image"], task_label)
+
+
+def set_seed_everywhere(seed: int) -> None:
+    """robot_utils.py:29-37: Python's, numpy's and torch's global generators
+    (torch.manual_seed seeds every device's)."""
+    import random
+
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)

@@ -104,6 +104,12 @@ def quant_mode(params: Dict) -> Optional[str]:
     return "int8"
 
 
+def is_quantized(params: Dict) -> bool:
+    """True if the LLM projection stacks are int8/int4
+    (quantize_decode_params output)."""
+    return quant_mode(params) is not None
+
+
 def quantize_decode_params(
     params: Dict,
     mode: str = "int8",

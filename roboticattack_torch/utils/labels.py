@@ -95,3 +95,22 @@ def extract_action_tokens(labels: torch.Tensor) -> torch.Tensor:
 def gripper_open_rows(labels: torch.Tensor) -> torch.Tensor:
     """Boolean [B]: rows whose gripper action token is the +1 token."""
     return extract_action_tokens(labels)[:, ACTION_DIM - 1] == ACTION_TOKEN_MIN
+
+
+def modify_labels_dict(labels: torch.Tensor, target_action: dict) -> torch.Tensor:
+    """TMA's secondary label rewrite (modifiy_labels, TMA.py:385-396): in each
+    row, the label at (first valid index + int(key)) becomes `value`;
+    values of IGNORE_INDEX are skipped, and positions past the row are
+    dropped (negative ones count from its end), as a JAX scatter does."""
+    seq = labels.shape[1]
+    first_valid = (labels != IGNORE_INDEX).long().argmax(dim=-1)
+    rows = torch.arange(labels.shape[0], device=labels.device)
+    out = labels.clone()
+    for key, value in target_action.items():
+        if int(value) == IGNORE_INDEX:
+            continue
+        pos = first_valid + int(key)
+        pos = torch.where(pos < 0, pos + seq, pos)
+        keep = (pos >= 0) & (pos < seq)
+        out[rows[keep], pos[keep]] = int(value)
+    return out

@@ -50,6 +50,13 @@ def normalize_image(images: torch.Tensor, mean, std) -> torch.Tensor:
     return (images - mean) / std
 
 
+def denormalize_image(images: torch.Tensor, mean, std) -> torch.Tensor:
+    """The inverse of normalize_image."""
+    mean = torch.as_tensor(mean, dtype=images.dtype, device=images.device)
+    std = torch.as_tensor(std, dtype=images.dtype, device=images.device)
+    return images * std + mean
+
+
 def dual_normalize(images: torch.Tensor) -> torch.Tensor:
     """[..., H, W, 3] in [0,1] -> [..., 2, H, W, 3]: (DINO-normed,
     SigLIP-normed). Axis -4 indexes the backbone (channels-last layout, as in
@@ -57,3 +64,12 @@ def dual_normalize(images: torch.Tensor) -> torch.Tensor:
     dino = normalize_image(images, DINO_MEAN, DINO_STD)
     sig = normalize_image(images, SIGLIP_MEAN, SIGLIP_STD)
     return torch.stack([dino, sig], dim=-4)
+
+
+def dual_normalize_from_nchw6(pixel_values: torch.Tensor) -> torch.Tensor:
+    """The reference's already-normalized [B, 6, H, W] stack (DINO channels,
+    then SigLIP's) as this package's [B, 2, H, W, 3] layout."""
+    b, c, h, w = pixel_values.shape
+    if c != 6:
+        raise ValueError(f"expected 6-channel stacked pixel_values, got {c}")
+    return pixel_values.reshape(b, 2, 3, h, w).permute(0, 1, 3, 4, 2)

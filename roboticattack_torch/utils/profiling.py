@@ -1,9 +1,39 @@
-"""Wall-clock step timing (the JAX package's `utils/profiling.py` StepTimer).
-The caller ends each timed step with a device synchronize."""
+"""Tracing and wall-clock step timing (the JAX package's
+`utils/profiling.py`). `maybe_trace` records a block with torch.profiler
+into one Chrome trace per rank; StepTimer's caller ends each timed step with
+a device synchronize."""
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
+from typing import Iterator, Optional
+
+
+@contextlib.contextmanager
+def maybe_trace(trace_dir: Optional[str]) -> Iterator[None]:
+    """Trace the block when `trace_dir` is set: host activity, and the
+    card's kernels where CUDA is available, written as
+    <trace_dir>/trace_rank<r>.json (Chrome trace format; r is the process
+    group rank, 0 without one)."""
+    if not trace_dir:
+        yield
+        return
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    path = os.path.join(trace_dir, f"trace_rank{rank}.json")
+    prof.export_chrome_trace(path)
+    print(f"[profiler] trace written to {path}")
 
 
 class StepTimer:

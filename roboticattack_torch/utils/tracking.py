@@ -1,5 +1,6 @@
 """Metric tracking: JSONL (always) + wandb (optional) + stdout (the JAX
-package's `utils/tracking.py`)."""
+package's `utils/tracking.py`). In a process group only rank 0 tracks: a
+tracker built on another rank writes, logs and prints nothing."""
 
 from __future__ import annotations
 
@@ -7,6 +8,8 @@ import json
 import os
 import time
 from typing import Dict, Optional
+
+from ..parallel.mesh import process_zero
 
 
 class Tracker:
@@ -20,12 +23,17 @@ class Tracker:
         config: Optional[Dict] = None,
         quiet: bool = False,
     ) -> None:
-        os.makedirs(run_dir, exist_ok=True)
         self.run_dir = run_dir
+        self.enabled = process_zero()
+        self.writes = 0  # JSONL lines this process wrote
         self.quiet = quiet
-        self._jsonl = open(os.path.join(run_dir, "run-metrics.jsonl"), "a")
         self._t0 = time.time()
         self._wandb = None
+        self._jsonl = None
+        if not self.enabled:
+            return
+        os.makedirs(run_dir, exist_ok=True)
+        self._jsonl = open(os.path.join(run_dir, "run-metrics.jsonl"), "a")
         if wandb_project and wandb_project != "false":
             try:
                 import wandb
@@ -38,17 +46,29 @@ class Tracker:
                 print("[tracker] wandb requested but not installed; JSONL only")
 
     def log(self, metrics: Dict[str, float], step: int) -> None:
+        if not self.enabled:
+            return
         payload = {"step": step, "elapsed_s": round(time.time() - self._t0, 3)}
         payload.update({k: float(v) for k, v in metrics.items()})
         self._jsonl.write(json.dumps(payload) + "\n")
         self._jsonl.flush()
+        self.writes += 1
         if self._wandb is not None:
             self._wandb.log(metrics, step=step)
         if not self.quiet:
             head = ", ".join(f"{k}={float(v):.5g}" for k, v in list(metrics.items())[:5])
             print(f"[step {step}] {head}")
 
+    def log_images(self, key: str, paths: list, step: int) -> None:
+        """Image files to wandb under `key` (nothing without wandb)."""
+        if self._wandb is not None:
+            import wandb
+
+            self._wandb.log({key: [wandb.Image(p) for p in paths]}, step=step)
+
     def close(self) -> None:
+        if not self.enabled:
+            return
         self._jsonl.close()
         if self._wandb is not None:
             self._wandb.finish()

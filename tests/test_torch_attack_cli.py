@@ -1,7 +1,7 @@
 """The port's attack CLI and runner on the CPU: a tiny UADA run to the end
 with the JAX runner's artifacts, `patch.pt` interchangeable both ways with
 the JAX package's artifacts, the resumable state, the refused
-(not yet ported) options, runs on real-format RLDS data (the tfrecord and
+options, runs on real-format RLDS data (the tfrecord and
 native layers) against the JAX CLI's data setup, and no silent CPU
 fallback."""
 
@@ -95,15 +95,15 @@ def test_state_round_trip_and_resume(tmp_path):
 
 @pytest.mark.parametrize("flags,match", [
     (["--checkpoint", "/nonexistent"], "/nonexistent"),
-    (["--data_parallel", "true"], "data-parallel"),
-    (["--ddp_semantics", "exact"], "data-parallel"),
-    (["--profile", "/tmp/trace"], "profile"),
+    (["--data_parallel", "true", "--ddp_semantics", "exact", "--accumulate", "2"], "accumulate"),
 ])
 def test_unported_options_raise(flags, match, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)  # the default run dir is ./run/...
     argv = ["--device", "cpu", *TINY]
     # a missing checkpoint directory raises FileNotFoundError naming it,
-    # before the run dir is made; every other flag is not ported yet
+    # and exact DDP refuses accumulation, each before the run dir is made
+    # (the data-parallel options and --profile run: tests/test_torch_ddp.py,
+    # tests/test_torch_profiling.py)
     error = FileNotFoundError if "--checkpoint" in flags else NotImplementedError
     with pytest.raises(error, match=match):
         cli.main(argv + flags)

@@ -194,18 +194,54 @@ def test_discover_tfrecords_equal(tmp_path):
 @pytest.mark.parametrize("train,shuffle", [(True, 16), (True, 1), (False, 16)])
 def test_first_64_frames_equal(tmp_path, train, shuffle):
     """make_frame_dataset(file_layer='native'): the same first 64 frames
-    (the reservoir shuffle from the same seed, epochs cycled; the val split
-    reads every train shard, as the JAX package's does)."""
-    jdir, tdir = write_both(tmp_path, n_episodes=6, n_shards=2, image_size=40)
+    (the reservoir shuffle from the same seed, epochs cycled; 6 episodes,
+    all of them in train[:95%]). Val reads train[95%:], episode 19 of 20,
+    whose frames equal the JAX package's for that episode: its native val
+    reads every train episode, once (the one difference, ROADMAP C4: the
+    port's val repeats that episode, as the tfrecord layer's val does)."""
+    n_ep = 6 if train else 20
+    jdir, tdir = write_both(tmp_path, n_episodes=n_ep, n_shards=2, image_size=40)
     kw = dict(train=train, stats=_stats(), image_size=56, seed=5, shuffle_buffer=shuffle,
               file_layer="native")
     wframes, wstats = jr.make_frame_dataset("bridge_orig", jdir, **kw)
     gframes, gstats = tr.make_frame_dataset("bridge_orig", tdir, **kw)
     assert gstats is kw["stats"] and wstats is kw["stats"]
-    n = 64 if train else 6 * (T - 2)  # val: one pass over the episodes
     git, wit = gframes.as_numpy_iterator(), wframes.as_numpy_iterator()
-    for g, w in zip([next(git) for _ in range(n)], [next(wit) for _ in range(n)]):
+    if train:
+        got, want = [next(git) for _ in range(64)], [next(wit) for _ in range(64)]
+    else:  # the port: the last episode's T - 2 frames, twice; JAX: one pass
+        want = list(wit)[19 * (T - 2):] * 2
+        got = [next(git) for _ in range(len(want))]
+    for g, w in zip(got, want):
         assert_tree_equal(g, w)
+
+
+def _actions(frames, n):
+    it = frames.as_numpy_iterator()
+    return [tuple(np.round(np.asarray(next(it)["action"], np.float64), 5)) for _ in range(n)]
+
+
+def test_native_split_equals_the_tfrecord_layers(tmp_path):
+    """train[:95%] / train[95%:] of 24 episodes in 3 shards: the native
+    layer's train and val frames are the tfrecord layer's (identified by
+    their actions: the layers decode JPEGs with other libraries), and the
+    two splits are disjoint. round(0.95 * 24) = 23: val is episode 23 alone,
+    so the native layer opens the third shard only."""
+    d = str(tmp_path)
+    tss.write_rlds_layout(d, n_episodes=24, n_shards=3, steps=T, image_size=32, rng=np.random.default_rng(2))
+    plan = tr.split_plan("bridge_orig", d, "train[95%:]")
+    assert (len(plan.paths), plan.skip, plan.take) == (1, 7, 1)
+    per_ep = T - 2  # the bridge transform drops two steps
+    out = {}
+    for layer in ("native", "tfrecord"):
+        for train, n_ep in ((True, 23), (False, 1)):
+            frames, _ = tr.make_frame_dataset("bridge_orig", d, train=train, stats=_stats(), image_size=32,
+                                              shuffle_buffer=1, file_layer=layer)
+            out[layer, train] = _actions(frames, n_ep * per_ep)
+    for train in (True, False):
+        assert sorted(out["native", train]) == sorted(out["tfrecord", train])
+    assert not set(out["native", True]) & set(out["native", False])
+    assert len(set(out["native", True])) == 23 * per_ep
 
 
 def test_native_needs_stats_as_jax(tmp_path):
@@ -216,7 +252,12 @@ def test_native_needs_stats_as_jax(tmp_path):
 
 
 def test_native_attack_batches_and_counters_equal(tmp_path):
-    jdir, tdir = write_both(tmp_path, n_episodes=5, image_size=40,
+    """Train batches and counters equal the JAX package's. Val (batches of
+    8) reads train[95%:] of 20 episodes: episode 19's T - 2 = 4 frames,
+    repeated, so each half of its batch is the second half of the JAX
+    native layer's 10th val batch, which reads every train episode
+    (ROADMAP C4)."""
+    jdir, tdir = write_both(tmp_path, n_episodes=20, image_size=40,
                             language=b"move the red block to the top left corner of the table")
     out = {}
     for pkg, mod, tok, d in (("jax", jr, JaxStub(), jdir), ("torch", tr, WordStubTokenizer(), tdir)):
@@ -224,10 +265,13 @@ def test_native_attack_batches_and_counters_equal(tmp_path):
         train, val = mod.make_attack_iterators(
             "bridge_orig", 4, seed=9, data_dir=d, tokenizer=tok, pad_to=48, counters=counters,
             file_layer="native", stats=_stats(), shuffle_buffer=8, image_size=56)
-        out[pkg] = ([next(train) for _ in range(3)] + [next(val)], counters)
-    (got, gc), (want, wc) = out["torch"], out["jax"]
+        vals = [next(val) for _ in range(10 if pkg == "jax" else 1)]
+        out[pkg] = ([next(train) for _ in range(3)], vals[-1], counters)
+    (got, gval, gc), (want, wval, wc) = out["torch"], out["jax"]
     assert gc == wc == {"frames_seen": 12, "frames_skipped_pad_to": 0}
-    for g, w in zip(got, want):
+    halves = [type(gval)(*(np.asarray(a)[rows] for a in gval)) for rows in (slice(0, 4), slice(4, 8))]
+    wval = type(wval)(*(np.asarray(a)[4:] for a in wval))
+    for g, w in zip(got + halves, want + [wval, wval]):
         for name, a, b in zip(g._fields, g, w):
             assert a.dtype == np.asarray(b).dtype, name
             np.testing.assert_array_equal(a, np.asarray(b), err_msg=name)
@@ -270,7 +314,7 @@ def test_stats_json_blob_for_the_native_cli(tmp_path):
 @pytest.mark.parametrize("layer", ["native"])
 def test_chip_smoke_data_phase_on_the_cpu(layer, monkeypatch):
     """chip_smoke.phase_data rehearsed on the CPU at a tiny size (vla-tiny
-    with flash attention and remat; 4 episodes of 6 steps, 64x64 frames):
+    with flash attention and remat; 20 episodes of 6 steps, 64x64 frames):
     every check of the phase on the native reader (bit-equal batches,
     statistics in the run dir, B1/B2 launches counted on their plain
     versions, DATA_* lines, the patch moved, the batch's way onto the
@@ -285,7 +329,8 @@ def test_chip_smoke_data_phase_on_the_cpu(layer, monkeypatch):
     tiny = dataclasses.replace(VLA_TINY, name="vla-tiny-flash-remat", remat=True,
                                llm=dataclasses.replace(VLA_TINY.llm, attn_impl="flash"))
     monkeypatch.setitem(REGISTRY, tiny.name, tiny)
-    for name, value in (("MODEL", tiny.name), ("DEVICE", "cpu"), ("DATA_LAYER", layer), ("DATA_EPISODES", 4),
+    # 20 episodes: train[95%:] holds one (TFDS rounding), as the phase's 24 do
+    for name, value in (("MODEL", tiny.name), ("DEVICE", "cpu"), ("DATA_LAYER", layer), ("DATA_EPISODES", 20),
                         ("DATA_STEPS", 6), ("DATA_FRAME", 64)):
         monkeypatch.setattr(chip_smoke, name, value)
     for kind in ("fwd", "bwd"):  # the plain versions launch nothing: count their calls
