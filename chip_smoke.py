@@ -92,6 +92,21 @@ Phases, each of which fails the run (non-zero exit, no result line) on error:
                launches per rank, per-rank peak memory and outer-step ms
                (two processes sharing one card: no scaling measure), the
                profile's B1/B2 events, N=2's first loss against N=1's.
+ 12. tp      — tensor- and data-parallel serving of the int4 7B from the
+               checkpoint directory (run after verify, before the directory
+               is deleted), each a torchrun job of `chip_smoke.py tp-rank`
+               ranks that call the CLI's main: `cli.serve --tp 2` and `--dp 2
+               --tp 2` with 8 HTTP clients (then SIGINT to rank 0), and
+               `cli.eval_libero --tp 4` over the eval phase's replayed
+               episodes; 2-4 processes share the one card over gloo (no
+               scaling measure). Per rank: exit 0, 1344 B4 launches a decode
+               on the body its shapes take (mma at groups of 128, fma at 64),
+               the load peak below 12 GiB (and what the rank keeps of it),
+               decode wall ms; the tokens against a single-process policy on
+               the same checkpoint and group size by the margin rule of the
+               eval phase. Then B4 against its plain version, timed, at each
+               tp's per-rank shapes and every row count m those runs gave
+               them (`phase_kernels_tp`).
 Then one JSON line of per-kernel numbers, the card line, and the result line.
 
 Imports nothing of JAX or of the JAX package.
@@ -108,6 +123,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import struct
 import subprocess
 import sys
@@ -357,6 +373,69 @@ def phase_kernels(bw: float):
             log(f"kernel {KERNELS[mode][0] if body == 'mma' else 'q4_matmul_grouped_fma'} ({body} body) "
                 f"{label}: max_abs_err={err:.3g} (tol 2^-7 x max|plain|)")
     return rows, group_err
+
+
+# tp -> (the int4 group size at that tp, the body it takes, B4's per-rank
+# shapes (label, out, in, launches a layer) of the 7B's Megatron split:
+# q/k/v/gate/up split out, o/down split the contraction)
+TP_SHAPES = {
+    2: (128, "mma", [("q/k/v_w", 2048, 4096, 3), ("o_w", 4096, 2048, 1), ("gate/up_w", 5504, 4096, 2),
+                     ("down_w", 4096, 5504, 1)]),
+    4: (64, "fma", [("q/k/v_w", 1024, 4096, 3), ("o_w", 4096, 1024, 1), ("gate/up_w", 2752, 4096, 2),
+                    ("down_w", 4096, 2752, 1)]),
+}
+
+
+def phase_kernels_tp(bw: float, rows_by_tp: dict) -> dict:
+    """B4 (grouped) against its plain version at each rank's shapes of the
+    7B under tensor parallelism (TP_SHAPES), at every row count m that the
+    tp runs gave those shapes (`rows_by_tp`: tp -> the m a rank's decodes
+    ran), timed as phase_kernels times, with the byte bound and the library
+    yardstick: per tp and m, one layer's 7 launches summed; per tp, the
+    largest error."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    out = {}
+    for tp, ms in sorted(rows_by_tp.items()):
+        gs, body, shapes = TP_SHAPES[tp]
+        by_m = {m: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "byte_ms": 0.0, "op_ms": 0.0, "library_ms": 0.0}
+                for m in ms}
+        err_max = 0.0
+        for label, out_dim, in_dim, per_layer in shapes:
+            g = in_dim // gs
+            wbytes = out_dim * in_dim // 2
+            nbuf = max(2, math.ceil(200e6 / wbytes))
+            ws = [torch.randint(-128, 128, (out_dim, in_dim // 2), generator=gen, device="cuda",
+                                dtype=torch.int32).to(torch.int8) for _ in range(nbuf)]
+            scs = [(torch.rand((out_dim, g), generator=gen, device="cuda") + 0.5) * 2e-3 for _ in range(nbuf)]
+            dense_w = [dequant_bf16(w, sc) for w, sc in zip(ws[:4], scs[:4])]
+            for m in ms:
+                y = torch.randn((m, 1, in_dim), generator=gen, device="cuda").to(torch.bfloat16)
+                name = f"tp {tp} {label} [{out_dim}x{in_dim}] m={m}, groups of {gs}"
+                got = launch_body(name, body, lambda: q4_matmul(y, ws[0], scs[0]))
+                err = check_close(name, got, q4_matmul_plain(y, ws[0], scs[0], "grouped", torch.bfloat16))
+                nbytes = wbytes + out_dim * g * 4 + m * in_dim * 2 + m * out_dim * 2
+                byte_ms = nbytes / bw * 1e3
+                op_ms = 2 * m * out_dim * in_dim / PEAK_BF16_FLOPS * 1e3
+                ms_k = device_ms(lambda i: q4_matmul(y, ws[i % nbuf], scs[i % nbuf]))
+                plain_ms = device_ms(lambda i: q4_matmul_plain(y, ws[i % nbuf], scs[i % nbuf], "grouped",
+                                                               torch.bfloat16), calls=4, replays=3)
+                library_ms = device_ms(lambda i: torch.matmul(y, dense_w[i % len(dense_w)].T))
+                for k, v in (("ms", ms_k), ("plain_ms", plain_ms), ("bound_ms", max(byte_ms, op_ms)),
+                             ("byte_ms", byte_ms), ("op_ms", op_ms), ("library_ms", library_ms)):
+                    by_m[m][k] += v * per_layer
+                err_max = max(err_max, err)
+                log(f"kernel q4_matmul_grouped ({body} body) {name}: max_abs_err={err:.3g} (tol 2^-7 x max|plain|) "
+                    f"kernel_ms={ms_k:.5f} plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
+                    f"bound_ms={max(byte_ms, op_ms):.5f} achieved={nbytes / (ms_k * 1e-3) / 1e9:.0f} GB/s")
+            del ws, scs, dense_w
+            torch.cuda.empty_cache()
+        for m, tot in by_m.items():
+            tot["bound_by"] = "bytes" if tot["byte_ms"] >= tot["op_ms"] else "operations"
+            log(f"kernel q4_matmul_grouped at a tp={tp} rank's shapes ({body} body, groups of {gs}), one layer's 7 "
+                f"launches at m={m}: kernel {tot['ms']:.5f} ms, plain {tot['plain_ms']:.5f} ms, library "
+                f"{tot['library_ms']:.5f} ms, bound {tot['bound_ms']:.5f} ms ({tot['bound_by']})")
+        out[tp] = dict(body=body, group=gs, max_abs_err=err_max, by_m=by_m)
+    return out
 
 
 def post_act(url: str, frame: np.ndarray, task: str, draft=None) -> dict:
@@ -1499,36 +1578,30 @@ def phase_checkpoint(card: str, root: str) -> dict:
         f"{read_s:.2f} s = {moved / read_s / 1e9:.2f} GB/s (file map -> card; the files "
         f"were just written, so mostly from the page cache) [{card}]")
 
-    # load as a user would, timing the conversion inside the same call
-    convert_s = []
-    real = convert.load_checkpoint_dir
-
-    def timed_convert(*a, **k):
-        t = time.perf_counter()
-        tree = real(*a, **k)
-        torch.cuda.synchronize()
-        convert_s.append(time.perf_counter() - t)
-        return tree
-
+    # load as a user would: each leaf read, converted, cooked and quantized
+    # before the next (the conversion alone is timed below)
     rng = np.random.default_rng(SEED)
     size = cfg.dino.image_size
     frames = rng.integers(0, 256, (N_REQUESTS, size, size, 3), dtype=np.uint8)
     tasks = [f"put the {c} cup on plate {i}" for i, c in
              enumerate(["red", "green", "blue", "yellow", "white", "black", "orange", "purple"])]
-    convert.load_checkpoint_dir = timed_convert
-    try:
-        t0 = time.perf_counter()
-        policy = load_policy(root, MODEL, quantize="int4", device=DEVICE)
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
-        first = policy.get_action(frames[0], tasks[0])
-        first_s = time.perf_counter() - t0
-    finally:
-        convert.load_checkpoint_dir = real
+    torch.cuda.synchronize()
+    peak_before = torch.cuda.max_memory_allocated() / 2**30
+    resident = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    policy = load_policy(root, MODEL, quantize="int4", device=DEVICE)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    load_peak = torch.cuda.max_memory_allocated() / 2**30
+    held = torch.cuda.memory_allocated() / 2**30 - resident
+    first = policy.get_action(frames[0], tasks[0])
+    first_s = time.perf_counter() - t0
     log(f"checkpoint: load_policy({os.path.basename(root)}, {MODEL!r}, quantize='int4', "
-        f"device='cuda') in {load_s:.2f} s: conversion on the card {convert_s[0]:.2f} s, "
-        f"policy build (cast, stats, tokenizer, cook, int4) {load_s - convert_s[0]:.2f} s; "
-        f"load start -> first action {first_s:.2f} s; action {np.round(first, 4).tolist()} [{card}]")
+        f"device='cuda') in {load_s:.2f} s (read, convert, cast, cook, int4, leaf by leaf); load start -> "
+        f"first action {first_s:.2f} s; action {np.round(first, 4).tolist()}; the load's peak "
+        f"{load_peak:.2f} GiB = {resident:.2f} GiB resident before it (the reference policy) + {held:.2f} GiB "
+        f"the policy keeps + {load_peak - resident - held:.2f} GiB transient [{card}]")
     if not (policy.int4_kernel and np.all(np.isfinite(first))):
         raise AssertionError(f"loaded policy: int4_kernel {policy.int4_kernel}, action {first}")
 
@@ -1573,6 +1646,10 @@ def phase_checkpoint(card: str, root: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
+    torch.cuda.synchronize()
+    peak_serve = torch.cuda.max_memory_allocated() / 2**30
+    before_check = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     tree = convert.load_checkpoint_dir(root, cfg, device=DEVICE)
     torch.cuda.synchronize()
@@ -1584,9 +1661,12 @@ def phase_checkpoint(card: str, root: str) -> dict:
     del tree, drawn
     gc.collect()
     torch.cuda.empty_cache()
-    peak_load = torch.cuda.max_memory_allocated() / 2**30
+    peak_check = torch.cuda.max_memory_allocated() / 2**30
+    peak_load = max(peak_before, peak_serve, peak_check)
     log(f"checkpoint: peak torch.cuda.max_memory_allocated over write, load, serve and the leaf "
-        f"check = {peak_load:.2f} GiB [{card}]")
+        f"check = {peak_load:.2f} GiB: the write and the reference policy {peak_before:.2f}, the load and "
+        f"serve {peak_serve:.2f}, the leaf check {peak_check:.2f} (two whole bf16 trees beside the "
+        f"{before_check:.2f} GiB allocated before it) [{card}]")
 
     # attack from the checkpoint against the seeded run
     argv = ["--attack", "uada", "--model", MODEL, "--dataset", "dummy", "--iter", "1",
@@ -2107,12 +2187,12 @@ def torchrun_attack(nproc: int, semantics: str, out_dir: str, profile_dir=None) 
     return proc.returncode, secs, rank_lines(out), out[-3000:]
 
 
-def rank_lines(out: str) -> dict:
-    """Each rank's `ddp rank r/W: {json}` object from the ranks' shared
+def rank_lines(out: str, prefix: str = "ddp rank") -> dict:
+    """Each rank's `<prefix> r/W: {json}` object from the ranks' shared
     output, by rank. Another rank's text may run into the line on either
     side: a print's text and its newline are separate writes."""
     ranks, decoder = {}, json.JSONDecoder()
-    for m in re.finditer(r"ddp rank (\d+)/(\d+): (?=\{)", out):
+    for m in re.finditer(prefix + r" (\d+)/(\d+): (?=\{)", out):
         ranks[int(m.group(1))] = decoder.raw_decode(out, m.end())[0]
     return ranks
 
@@ -2215,6 +2295,242 @@ def phase_ddp(card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ tp
+# Tensor- and data-parallel serving of the int4 7B from the checkpoint
+# directory, each run a torchrun job of 2 or 4 processes on the one card over
+# gloo (NCCL refuses two ranks on one device): a correctness run, not a
+# speed one. (label, CLI, processes, flags, the single-process reference's
+# quantize, the B4 body a rank's shapes take)
+TP_RUNS = [
+    ("cli.serve --tp 2", "serve", 2, ["--tp", "2"], "int4", "mma"),
+    ("cli.serve --dp 2 --tp 2", "serve", 4, ["--dp", "2", "--tp", "2"], "int4", "mma"),
+    ("cli.eval_libero --tp 4", "eval", 4, ["--tp", "4"], "int4:64", "fma"),
+]
+TP_TIMEOUT_S = 300
+TP_LOAD_PEAK_GIB = 12.0  # under the whole bf16 7B's 14.0 GiB: a rank holding the whole model fails
+
+
+def tp_rank_main(argv: list) -> int:
+    """One rank of a tp run: `chip_smoke.py tp-rank serve|eval OUT CLI-ARGS`
+    runs `cli.serve.main` / `cli.eval_libero.main` (the eval over the eval
+    phase's replayed episodes); rank 0 records every policy call's frames,
+    tasks, tokens and actions (and the eval's env actions) to
+    OUT/calls_rank0.pt."""
+    kind, out_dir, cli_argv = argv[0], argv[1], argv[2:]
+    rank = int(os.environ.get("RANK", "0"))
+    calls, real = [], VLAPolicy.get_action_multi
+
+    def record(self, images, tasks, draft_tokens=None):
+        acts = real(self, images, tasks, draft_tokens=draft_tokens)
+        calls.append({"images": np.array(images), "tasks": list(tasks), "tokens": self.last_tokens.copy(),
+                      "actions": acts, "passes": self.last_verify_passes})
+        return acts
+
+    if rank == 0:
+        VLAPolicy.get_action_multi = record
+    if kind == "serve":
+        from roboticattack_torch.cli import serve
+
+        serve.main(cli_argv)
+        env_actions = None
+    else:
+        from roboticattack_torch.cli import eval_libero
+
+        rng = np.random.default_rng(SEED)
+        episodes = [coherent_walk(rng, 10 + EVAL_REAL_STEPS + 2) for _ in range(EVAL_TRIALS)]
+        with ReplayLibero(episodes, EVAL_REAL_STEPS) as replay:
+            eval_libero.main(cli_argv)
+        env_actions = replay.actions
+    if rank == 0:
+        torch.save({"calls": calls, "env_actions": env_actions}, os.path.join(out_dir, "calls_rank0.pt"))
+    return 0
+
+
+def torchrun_tp(kind: str, nproc: int, argv: list, out_dir: str, frames=None, tasks=None) -> dict:
+    """`python -m torch.distributed.run --standalone --nproc_per_node N
+    chip_smoke.py tp-rank KIND OUT ARGV` in its own process group (killed
+    whole past TP_TIMEOUT_S). A serve run is driven as a user would: the
+    frames POSTed from concurrent clients once rank 0 serves, /healthz read,
+    then Ctrl-C (SIGINT) to rank 0, whose stop releases the other ranks.
+    Returns the exit code, seconds, the `serving rank` lines by rank, the
+    replies, /healthz, rank 0's recorded calls and the output's tail."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(nproc),
+           os.path.abspath(__file__), "tp-rank", kind, out_dir, *argv]
+    t = time.perf_counter()
+    deadline = time.monotonic() + TP_TIMEOUT_S
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    lines = []
+    reader = threading.Thread(target=lambda: lines.extend(iter(proc.stdout.readline, "")), daemon=True)
+    reader.start()
+    replies = health = None
+    try:
+        if kind == "serve":
+            url = pid = None
+            while (url is None or pid is None) and proc.poll() is None and time.monotonic() < deadline:
+                time.sleep(0.2)
+                out = "".join(lines)
+                m, p = re.search(r"serving on (http://\S+)", out), re.search(r"rank 0 of \d+ \(pid (\d+)\)", out)
+                url, pid = m and m.group(1), p and int(p.group(1))
+            if url is None or pid is None:
+                raise AssertionError(f"tp {kind} x{nproc}: rank 0 never served\n{''.join(lines)[-3000:]}")
+            serve_s = time.perf_counter() - t
+            t_req = time.perf_counter()
+            replies = concurrent_posts(url + "/act", frames, tasks)
+            req_s = time.perf_counter() - t_req
+            health = get_json(url + "/healthz")
+            health.update(ready_s=serve_s, requests_s=req_s)
+            os.kill(pid, signal.SIGINT)
+        proc.wait(timeout=max(deadline - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.wait()
+        raise AssertionError(f"tp {kind} x{nproc} ran past {TP_TIMEOUT_S} s\n{''.join(lines)[-3000:]}")
+    except BaseException:
+        os.killpg(proc.pid, 9)
+        proc.wait()
+        raise
+    reader.join(30)
+    secs = time.perf_counter() - t
+    out = "".join(lines)
+    path = os.path.join(out_dir, "calls_rank0.pt")
+    rec = torch.load(path, weights_only=False) if os.path.exists(path) else None
+    return {"rc": proc.returncode, "seconds": secs, "ranks": rank_lines(out, "serving rank"), "replies": replies,
+            "health": health, "record": rec, "tail": out[-3000:]}
+
+
+def check_tokens_by_margin(label: str, ref, plain, calls: list) -> dict:
+    """A run's tokens against a single-process reference decode of the same
+    inputs (a DecodeResult with logits per call, from `ref(call)`): a token
+    may differ only where the reference's margin of its own token over the
+    run's is within 2x the largest |logit difference| of the reference's
+    kernel tail from its plain int4 tail (`plain`, on the first call's
+    inputs; the rule of the eval phase's Jacobi check)."""
+    flips, differ, n = [], 0, 0
+    drift = None
+    for call in calls:
+        seq = ref(call)
+        if drift is None:
+            drift = tail_drift(seq, plain(call))[1]
+        got = np.asarray(call["tokens"])
+        differ += int((seq.tokens.cpu().numpy() != got).sum())
+        n += got.size
+        flips += first_flips(seq, got)
+    bound = 2 * drift
+    log(f"tp: {label}: tokens against one process on the same checkpoint and group size: {differ} of {n} "
+        f"differ; first departures (row, position, one process's margin) {flips}; bound 2 x drift = "
+        f"{bound:.4f} (kernel vs plain int4 tail of the reference)")
+    if any(m > bound for _, _, m in flips):
+        raise AssertionError(f"tp {label}: tokens depart from one process beyond the drift bound: {flips}")
+    return {"differ": differ, "tokens": n, "flips": flips, "bound": bound}
+
+
+def phase_tp(card: str, root: str) -> dict:
+    """The runs of TP_RUNS on the int4 7B from `root` and their checks:
+    every rank exits 0; each rank's every decode launches B4 1344 times
+    (6 steps x 32 layers x 7), all on the body its shapes take; each rank's
+    load peaks below TP_LOAD_PEAK_GIB; the replies (serve) are 7 finite
+    actions and the env actions (eval) finite, the eval's summary and log
+    of the JAX format; the tokens equal one process's on the same
+    checkpoint and group size by the margin rule."""
+    from roboticattack_torch.attacks.artifacts import save_patch_pt
+
+    t_phase = time.perf_counter()
+    llm = get_config(MODEL).llm
+    layers = llm.num_layers
+    per_decode = 6 * layers * 7
+    stack_gib = layers * llm.intermediate_size * llm.hidden_size * 2 / 2**30  # the largest bf16 stack
+    rng = np.random.default_rng(SEED + 7)
+    frames = rng.integers(0, 256, (N_REQUESTS, 224, 224, 3), dtype=np.uint8)
+    tasks = [f"put the {c} cup on plate {i}" for i, c in enumerate(
+        ["red", "green", "blue", "yellow", "white", "black", "orange", "purple"][:N_REQUESTS])]
+    work = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    patch = np.random.default_rng(SEED).uniform(0, 1, (50, 50, 3)).astype(np.float32)
+    patch_path = os.path.join(work, "patch.pt")
+    save_patch_pt(patch, patch_path)
+    base = ["--checkpoint", root, "--model", MODEL, "--quantize", "int4", "--device", DEVICE]
+    out = {}
+    try:
+        for label, kind, nproc, flags, ref_quant, body in TP_RUNS:
+            run_dir = os.path.join(work, f"{kind}_{nproc}")
+            os.makedirs(run_dir)
+            if kind == "serve":
+                argv = base + ["--port", "0", "--max_batch", str(MAX_BATCH), "--max_wait_ms", "500"] + flags
+                run = torchrun_tp(kind, nproc, argv, run_dir, frames, tasks)
+            else:
+                argv = base + ["--task_suite_name", EVAL_SUITE, "--patchroot", patch_path, "--x", str(EVAL_XY[0]),
+                               "--y", str(EVAL_XY[1]), "--batch_trials", str(EVAL_TRIALS), "--num_trials_per_task",
+                               str(EVAL_TRIALS), "--jacobi", "false", "--output", os.path.join(run_dir, "eval")] + flags
+                run = torchrun_tp(kind, nproc, argv, run_dir)
+            ranks = run["ranks"]
+            if run["rc"] != 0 or sorted(ranks) != list(range(nproc)) or run["record"] is None:
+                raise AssertionError(f"tp {label}: exit {run['rc']}, rank lines {sorted(ranks)}\n{run['tail']}")
+            want = {"mma": 0, "fma": 0, body: per_decode}
+            for r, v in sorted(ranks.items()):
+                ms = v["decode_ms"]
+                log(f"tp: {label}: rank {r} on {v['device']} ({v['backend']}): load peak {v['load_peak_gib']:.2f} GiB "
+                    f"= {v['load_held_gib']:.2f} GiB the rank keeps (its shard, the vision towers and projector, the "
+                    f"int8 embed) + {v['load_peak_gib'] - v['load_held_gib']:.2f} GiB transient (the largest whole "
+                    f"bf16 stack, gate/up/down, is {stack_gib:.2f} GiB), "
+                    f"run peak {v['run_peak_gib']:.2f} GiB, {v['decodes']} decodes (rows {v['rows']}), decode wall "
+                    f"ms median {np.median(ms):.2f} (min {min(ms):.2f}, max {max(ms):.2f}), B4 a decode "
+                    f"{v['b4'][0]} ({nproc} processes on one card over {v['backend']}: a correctness run, "
+                    f"not a speed) [{card}]")
+                if any(b != want for b in v["b4"]) or not v["decodes"]:
+                    raise AssertionError(f"tp {label}: rank {r}'s B4 launches a decode {v['b4']}, want {want}")
+                if not v["load_peak_gib"] < TP_LOAD_PEAK_GIB:
+                    raise AssertionError(f"tp {label}: rank {r}'s load peaked at {v['load_peak_gib']:.2f} GiB")
+            if len({v["decodes"] for v in ranks.values()}) != 1:
+                raise AssertionError(f"tp {label}: decodes by rank {[v['decodes'] for v in ranks.values()]}")
+            calls = run["record"]["calls"]
+            res = {"seconds": run["seconds"], "decodes": ranks[0]["decodes"], "tp": ranks[0]["tp"],
+                   "rows": sorted({m for v in ranks.values() for m in v["rows"]}),
+                   "load_peak_gib": {r: v["load_peak_gib"] for r, v in ranks.items()},
+                   "load_held_gib": {r: v["load_held_gib"] for r, v in ranks.items()},
+                   "run_peak_gib": {r: v["run_peak_gib"] for r, v in ranks.items()},
+                   "decode_ms": {r: float(np.median(v["decode_ms"])) for r, v in ranks.items()},
+                   "b4_per_rank": {r: sum(b[body] for b in v["b4"]) for r, v in ranks.items()}, "body": body}
+            gc.collect()
+            torch.cuda.empty_cache()
+            ref_policy = load_policy(root, MODEL, quantize=ref_quant, device="cuda")
+            if kind == "serve":
+                h = run["health"]
+                log(f"tp: {label}: torchrun exit 0 in {run['seconds']:.1f} s (ranks' start and load included; "
+                    f"rank 0 served after {h['ready_s']:.1f} s), {N_REQUESTS} concurrent POST /act answered 200 with "
+                    f"7 finite actions in {h['requests_s']:.3f} s; /healthz stats {h['stats']} buckets {h['buckets']}")
+                if h["stats"]["requests"] != N_REQUESTS or h["stats"]["errors"]:
+                    raise AssertionError(f"tp {label}: /healthz {h}")
+                served = [c for c in calls if c["tasks"][0] != "warmup"]
+                by_task = {t: tok for c in served for t, tok in zip(c["tasks"], c["tokens"])}
+                call = {"images": frames, "tasks": tasks, "tokens": np.stack([by_task[t] for t in tasks])}
+                res["tokens"] = check_tokens_by_margin(
+                    label, lambda c: ref_policy.decode(c["images"], c["tasks"]),
+                    lambda c: ref_policy.decode(c["images"], c["tasks"], int4_kernel=False), [call])
+            else:
+                out_dir = os.path.join(run_dir, "eval")
+                summary = open(os.path.join(out_dir, f"{EVAL_SUITE}.txt")).read()
+                want_summary = (f"success_rate/total:1.0, num_episodes/total:{EVAL_TRIALS} "
+                                f"position_info:0.0_0.0_0.0_{EVAL_XY[0]}_{EVAL_XY[1]} \n")
+                acts = np.stack(run["record"]["env_actions"])
+                log(f"tp: {label}: torchrun exit 0 in {run['seconds']:.1f} s (ranks' start and load included), "
+                    f"{len(calls)} lockstep policy calls at bs {EVAL_TRIALS}; summary {summary!r}")
+                if (summary != want_summary or len(calls) != EVAL_REAL_STEPS or not np.all(np.isfinite(acts))
+                        or len(acts) != EVAL_TRIALS * (10 + EVAL_REAL_STEPS)):
+                    raise AssertionError(f"tp {label}: summary {summary!r}, {len(calls)} calls, {len(acts)} actions")
+                res["tokens"] = check_tokens_by_margin(
+                    label, lambda c: ref_policy.decode(c["images"], c["tasks"]),
+                    lambda c: ref_policy.decode(c["images"], c["tasks"], int4_kernel=False), calls)
+            del ref_policy
+            gc.collect()
+            torch.cuda.empty_cache()
+            out[label] = res
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"tp: the phase took {time.perf_counter() - t_phase:.1f} s (the single-process references' loads and "
+        f"decodes included)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA card",
@@ -2257,10 +2573,17 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         ver = phase_verify(card, root)
+        gc.collect()
+        torch.cuda.empty_cache()
+        tpr = phase_tp(card, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
+    rows_by_tp = {}
+    for run in tpr.values():
+        rows_by_tp[run["tp"]] = sorted(set(rows_by_tp.get(run["tp"], [])) | set(run["rows"]))
+    tp_rows = phase_kernels_tp(bw, rows_by_tp)
     ddp = phase_ddp(card)
 
     kernels = []
@@ -2289,8 +2612,8 @@ def main() -> int:
         kernels.append({
             "name": kname, "route": "cuda", "source": SOURCE, "replaces": replaces,
             "body": body, "launches": res["launches"][mode],
-            "max_abs_err": max([r["max_abs_err"] for r in rows if r["mode"] == mode]
-                               + [group_err[mode]]),
+            "max_abs_err": max([r["max_abs_err"] for r in rows if r["mode"] == mode] + [group_err[mode]]
+                               + ([r["max_abs_err"] for r in tp_rows.values()] if mode == "grouped" else [])),
             "ms": layer_sum("ms"), "plain_ms": layer_sum("plain_ms"),
             "bound_ms": layer_sum("bound_ms"),
             "bound_by": "bytes" if layer_sum("byte_ms") >= layer_sum("op_ms") else "operations",
@@ -2299,7 +2622,10 @@ def main() -> int:
                   "2x 11008x4096, 1x 4096x11008), summed per-launch times",
             "max_abs_err_over": f"the 7B shapes at m={'/'.join(map(str, M_ROWS if mode == 'grouped' else M_ROWS[:-1]))}, "
                                 f"and 4096x4096 at m=8 with groups of "
-                                f"32 and 64 ({'on the fma body' if mode == 'grouped' else 'on the mma body'})",
+                                f"32 and 64 ({'on the fma body' if mode == 'grouped' else 'on the mma body'})"
+                                + ("; a tp rank's shapes at every m its runs gave them: "
+                                   + "; ".join(f"tp={tp} at m={'/'.join(map(str, r['by_m']))}"
+                                               for tp, r in tp_rows.items()) if mode == "grouped" else ""),
             "on_main_path": mode == "grouped",
         })
         if mode == "grouped":
@@ -2312,6 +2638,8 @@ def main() -> int:
                                      **{f"eval_libero {k} (int4, from the checkpoint)": v["b4"]["mma"] + v["b4"]["fma"]
                                         for k, v in ev["runs"].items()},
                                      "verify_checkpoint quant int4+qk (bs 2, 2 batches)": ver["quant_launches"],
+                                     **{f"torchrun {label}, rank {r} ({run['body']} body)": n
+                                        for label, run in tpr.items() for r, n in run["b4_per_rank"].items()},
                                      **{f"options Jacobi HTTP {k}": v["mma"] + v["fma"]
                                         for k, v in opts["jacobi_launches"].items()}},
                 "jacobi_verify_passes": {"round 1": opts["passes"][0], "round 2": opts["passes"][1]},
@@ -2321,6 +2649,14 @@ def main() -> int:
                 "max_abs_err_m56": max(r["max_abs_err"] for r in m56),
                 "at_m56": "the Jacobi pass at bs 8, y [8, 7, in]: one layer's 7 projections, "
                           "summed per-launch times",
+                "per_rank_shapes": {
+                    f"tp {tp} m={m}": {"body": r["body"], "group": r["group"], "ms": t["ms"],
+                                       "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                                       "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                                       "max_abs_err_tp": r["max_abs_err"],
+                                       "at": f"one tp={tp} rank's 7 projections of a layer at m={m}, "
+                                             "summed per-launch times"}
+                    for tp, r in tp_rows.items() for m, t in r["by_m"].items()},
             })
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -2331,6 +2667,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["tp-rank"]:  # one rank of a phase_tp run (torchrun starts it)
+        sys.exit(tp_rank_main(sys.argv[2:]))
     try:
         rc = main()
     except Exception:

@@ -10,17 +10,22 @@ Smoke on the CPU (tiny model, random weights; LIBERO must be importable):
   python -m roboticattack_torch.cli.eval_libero --model vla-tiny --device cpu \
       --num_trials_per_task 1
 
+Tensor- and data-parallel policy calls, one process a rank:
+  torchrun --nproc_per_node 4 -m roboticattack_torch.cli.eval_libero \
+      --checkpoint /path/to/openvla-7b --quantize int4 --tp 4 --batch_trials 8
+Rank 0 runs the lockstep episodes and writes every file; the other ranks
+follow its policy calls (serving/ranks.py). Each rank prints one
+`serving rank r/W: {json}` line at the end.
+
 The flags are the JAX CLI's (roboticattack_tpu/cli/eval_libero.py) plus
 `--device cuda|cpu` (default cuda; without a GPU it raises unless given
-`--device cpu`). --tp/--dp other than 1 (not ported yet) raise
-NotImplementedError naming their ROADMAP.md item.
+`--device cpu`).
 """
 
 from __future__ import annotations
 
 import argparse
 
-from .. import not_ported
 from ..utils.quant_args import add_int4_kernel_flag, quantize_arg, resolve_int4_kernel
 from .serve import str2bool
 
@@ -57,9 +62,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="int8 or packed int4 KV cache")
     add_int4_kernel_flag(p)
     p.add_argument("--tp", default=1, type=int,
-                   help="tensor-parallel serving (not ported: only 1)")
+                   help="tensor-parallel policy calls over this many torchrun ranks")
     p.add_argument("--dp", default=1, type=int,
-                   help="data-parallel serving (not ported: only 1)")
+                   help="data-parallel policy calls: --batch_trials rows split "
+                        "over this many replicas (composes with --tp; torchrun "
+                        "--nproc_per_node dp*tp)")
     p.add_argument("--visual_tokens", default=None, type=int,
                    help="keep only the k most salient patch tokens before "
                         "the LLM (LOSSY; run a clean-vs-pruned A/B first)")
@@ -100,19 +107,25 @@ def main(argv=None):
     parser = build_parser()
     apply_config_file(parser, argv)
     args = parser.parse_args(argv)
-    if args.tp != 1 or args.dp != 1:
-        raise not_ported("--tp/--dp serving", "slice 3: TP and DP")
     from ..eval.libero import LiberoEvalConfig, eval_libero
     from ..eval.policy import load_policy
+    from ..parallel import make_serving_mesh
+    from ..serving import ranks
 
-    if args.checkpoint is None and args.model == "openvla-7b":
+    mesh = make_serving_mesh(tp=args.tp, dp=args.dp, device=args.device)
+    lead = mesh is None or mesh.rank == 0
+    if args.checkpoint is None and args.model == "openvla-7b" and lead:
         print("WARNING: no --checkpoint; random weights (smoke mode)")
+    if args.dp > 1 and args.batch_trials % args.dp and lead:
+        print(f"WARNING: --dp {args.dp} does not divide --batch_trials "
+              f"{args.batch_trials}; policy calls serve replicated "
+              f"(no dp speedup)", flush=True)
     policy = load_policy(
         args.checkpoint, model_name=args.model,
         unnorm_key=args.unnorm_key, center_crop=args.center_crop,
         quantize=args.quantize, kv_cache=args.kv_cache,
         visual_tokens=args.visual_tokens,
-        int4_kernel=resolve_int4_kernel(args.int4_kernel), device=args.device,
+        int4_kernel=resolve_int4_kernel(args.int4_kernel), device=args.device, mesh=mesh,
     )
     cfg = LiberoEvalConfig(
         task_suite_name=args.task_suite_name,
@@ -124,8 +137,15 @@ def main(argv=None):
         unnorm_key=args.unnorm_key, batch_trials=args.batch_trials,
         jacobi=args.jacobi,
     )
-    successes, episodes = eval_libero(cfg, policy)
-    print(f"success rate: {successes}/{episodes}")
+    result = ranks.run(policy, lambda: eval_libero(cfg, policy))
+    if lead:
+        successes, episodes = result
+        print(f"success rate: {successes}/{episodes}")
+    if mesh is not None:
+        from ..parallel import distributed
+
+        ranks.print_rank_report(policy)
+        distributed.shutdown()
 
 
 if __name__ == "__main__":

@@ -17,16 +17,26 @@ cache and visual-token pruning:
   python -m roboticattack_torch.cli.serve --model vla-tiny --device cpu \
       --drafts --kv_cache int4 --visual_tokens 8
 
+Tensor- and data-parallel serving, one process a rank (the JAX CLI drives
+a dp x tp mesh from one process):
+  torchrun --nproc_per_node 2 -m roboticattack_torch.cli.serve \
+      --checkpoint /path/to/openvla-7b --quantize int4 --tp 2
+  torchrun --nproc_per_node 4 -m roboticattack_torch.cli.serve \
+      --checkpoint /path/to/openvla-7b --quantize int4 --dp 2 --tp 2
+Rank 0 binds the port and runs the batcher and the warmup; the other ranks
+follow each of its decodes (serving/ranks.py) and exit 0 when it stops.
+Each rank prints one `serving rank r/W: {json}` line at the end (its load
+and run peaks, each decode's wall ms and int4-kernel launches by body).
+
 The flags are the JAX CLI's (roboticattack_tpu/cli/serve.py), with
-`--platform` replaced by `--device cuda|cpu`. --tp/--dp other than 1 (not
-ported yet) raise NotImplementedError naming their ROADMAP.md item.
+`--platform` replaced by `--device cuda|cpu`.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
-from .. import not_ported
 from ..utils.quant_args import add_int4_kernel_flag, quantize_arg, resolve_int4_kernel
 
 
@@ -55,8 +65,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "resolves the group size per model)")
     p.add_argument("--kv_cache", default=None, choices=[None, "int8", "int4"])
     add_int4_kernel_flag(p)
-    p.add_argument("--tp", default=1, type=int)
-    p.add_argument("--dp", default=1, type=int)
+    p.add_argument("--tp", default=1, type=int,
+                   help="tensor-parallel serving: Megatron splits of the "
+                        "weights over this many torchrun ranks")
+    p.add_argument("--dp", default=1, type=int,
+                   help="data-parallel serving: batch rows split over this "
+                        "many replicas; composes with --tp as a dp x tp grid "
+                        "(torchrun --nproc_per_node dp*tp)")
     p.add_argument("--visual_tokens", default=None, type=int)
     p.add_argument("--drafts", action="store_true",
                    help="Jacobi self-speculative decode: clients send the "
@@ -71,21 +86,44 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.tp != 1 or args.dp != 1:
-        raise not_ported("--tp/--dp serving", "slice 3: TP and DP")
-    import numpy as np
-
     from ..eval.policy import load_policy
-    from ..serving.http import ActionServer
+    from ..parallel import make_serving_mesh
+    from ..serving import ranks
+    from ..serving.batcher import default_buckets
 
-    if args.checkpoint is None and args.model == "openvla-7b":
+    mesh = make_serving_mesh(tp=args.tp, dp=args.dp, device=args.device)
+    lead = mesh is None or mesh.rank == 0
+    if mesh is not None and args.dp > 1 and lead:
+        bad = [b for b in default_buckets(args.max_batch) if b % args.dp]
+        if bad:
+            print(f"WARNING: --dp {args.dp} does not divide buckets {bad}; "
+                  f"those batches serve replicated (no dp speedup)", flush=True)
+    if args.checkpoint is None and args.model == "openvla-7b" and lead:
         print("WARNING: no --checkpoint; random weights (smoke mode)")
     policy = load_policy(
         args.checkpoint, model_name=args.model, unnorm_key=args.unnorm_key,
         center_crop=args.center_crop, quantize=args.quantize,
         kv_cache=args.kv_cache, visual_tokens=args.visual_tokens,
-        int4_kernel=resolve_int4_kernel(args.int4_kernel), device=args.device,
+        int4_kernel=resolve_int4_kernel(args.int4_kernel), device=args.device, mesh=mesh,
     )
+    if mesh is not None and lead:
+        print(f"rank 0 of {mesh.world} (pid {os.getpid()}) serves; the other ranks follow its decodes",
+              flush=True)
+    ranks.run(policy, lambda: serve(policy, args))
+    if mesh is not None:
+        from ..parallel import distributed
+
+        ranks.print_rank_report(policy)
+        distributed.shutdown()
+
+
+def serve(policy, args) -> None:
+    """The front end: the batcher and the HTTP server over `policy` (on
+    rank 0 alone under a mesh), until interrupted."""
+    import numpy as np
+
+    from ..serving.http import ActionServer
+
     server = ActionServer(
         policy, host=args.host, port=args.port,
         max_batch=args.max_batch, max_wait_ms=args.max_wait_ms, drafts=args.drafts,

@@ -23,7 +23,8 @@ then
 Exit code 0 iff every requested step passes; a JSON report and the smoke
 patch land in --output. The flags are the JAX CLI's with `--device
 cuda|cpu` (default cuda; without a GPU it raises unless given `--device
-cpu`); `--quant-tp` above 1 is not ported.
+cpu`). `--quant-tp` picks the int4 group size of the tensor-parallel degree
+you will deploy with (the decode itself runs in one process).
 """
 
 from __future__ import annotations
@@ -57,8 +58,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "precision decode: <int8|w8a8|int4|none>[+kv8|kv4]"
                         "[+vt<k>][+qk]")
     p.add_argument("--quant-tp", type=int, default=1,
-                   help="the tensor-parallel degree you will deploy with "
-                        "(not ported: only 1)")
+                   help="the tensor-parallel degree you will deploy with: "
+                        "int4's group size depends on it (7B tp=4 serves "
+                        "gs=64, not 128), and the gate must test the "
+                        "quantization that will be served")
     p.add_argument("--quant-min-agreement", type=float, default=0.9,
                    help="token-agreement gate, applied to the int8 mode")
     p.add_argument("--output", default=None,
@@ -73,10 +76,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    from .. import not_ported
-
-    if args.quant_tp != 1:
-        raise not_ported("--quant-tp", "slice 3: TP and DP")
     from ..utils.device import resolve_device
 
     dev = resolve_device(args.device)
@@ -123,6 +122,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                     f"--quant-modes {m!r}: vt{vt} exceeds the model's "
                     f"{cfg.num_patches} patch tokens"
                 )
+        from ..models.quant import int4_group_size_for
+
+        # a --quant-tp the model cannot split fails here, not after the legs
+        int4_group_size_for(cfg, tp=args.quant_tp)
 
     # prismatic zoo checkpoints are a torch .pt (no safetensors headers):
     # load + rename upfront, validate the manifest over the in-memory state
@@ -238,7 +241,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
         t0 = time.time()
         qr = quant_decode_report(dev_params, cfg, modes=quant_modes, seed=args.seed,
-                                 min_agreement=args.quant_min_agreement)
+                                 min_agreement=args.quant_min_agreement, tp=args.quant_tp)
         report["steps"]["quant"] = qr
         for mode, d in qr.items():
             tag = ("PASS" if d["ok"] else "FAIL") if "ok" in d else "info"

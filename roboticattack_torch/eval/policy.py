@@ -8,10 +8,16 @@ with the caller.
 Entry points run on CUDA unless the caller passes `device="cpu"`; without a
 GPU and without that explicit choice they raise. They never fall back to
 the CPU on their own.
+
+`mesh=` (parallel.make_serving_mesh) serves a dp x tp grid of torchrun
+ranks: each rank holds its Megatron shard of the cooked, quantized tree
+(parallel/sharding.py), cut leaf by leaf as the weights are drawn or read;
+rank 0 drives every decode and the others follow it (serving/ranks.py).
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
@@ -22,7 +28,6 @@ from ..models.config import VLAConfig, get_config, torch_dtype
 from ..models.decode import (
     KV_CACHE_MODES,
     DecodeResult,
-    decode_layout_params,
     ensure_trailing_empty_token,
     greedy_decode_actions,
     unnormalize_actions,
@@ -40,11 +45,13 @@ PROMPT_PAD = 64
 DECODE_OPTIONS = ("kv_cache", "visual_tokens", "act_quant", "int4_kernel")
 
 
-def _to_device(tree: Mapping, device: torch.device) -> Dict:
-    return {
-        k: _to_device(v, device) if isinstance(v, Mapping) else v.to(device)
-        for k, v in tree.items()
-    }
+def _to_device(leaves, device: torch.device):
+    """(path, leaf on `device`) of `leaves`, one at a time: none is kept
+    once it is handed over."""
+    for path, x in leaves:
+        x = x.to(device)
+        yield path, x
+        del x
 
 
 class VLAPolicy:
@@ -63,9 +70,12 @@ class VLAPolicy:
         visual_tokens: Optional[int] = None,
         int4_kernel: Optional[bool] = None,
         device="cuda",
+        mesh=None,
     ) -> None:
         """`params`: a `VLA` module (models.bridge.params_from_jax gives one)
-        or the nested dict of tensors in the JAX pytree layout.
+        or the nested dict of tensors in the JAX pytree layout, or an
+        iterable of its (path, tensor) leaves (models.vlm.iter_vla_params,
+        models.convert.iter_checkpoint_leaves), consumed one at a time.
 
         `quantize='int8'|'int4'|'int4:<gs>'`: weight-only quantization of the
         LLM stack + lm_head/embed (models/quant.py); `'w8a8'`: int8 weights
@@ -77,9 +87,23 @@ class VLAPolicy:
         `kv_cache='int8'|'int4'` and `visual_tokens=k` reach every decode
         (models/decode.py greedy_decode_actions). `center_crop=True` crops
         each frame to 0.9 of its area and resizes it back to 224 before the
-        processor (the reference's eval-time crop, eval/processing.py)."""
+        processor (the reference's eval-time crop, eval/processing.py).
+
+        `mesh` (a ServingMesh): the policy holds this rank's shard (the int4
+        group size then divides each rank's row-parallel contraction,
+        int4_group_size_for(cfg, tp)), `decode` runs on every rank of the
+        world, and rank 0 gets the whole batch's results (serving/ranks.py).
+        With int4 on CUDA the kernel runs on each rank's local stacks."""
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device.type != self.device.type:
+            raise ValueError(f"the mesh's ranks are on {mesh.device}, the policy asks for {self.device}")
+        if mesh is not None:
+            self.device = mesh.device
         quant_mode, act_quant, quant_gs = resolve_quantize(quantize)
+        if quant_mode == "int4" and quant_gs is None:
+            from ..models.quant import int4_group_size_for
+
+            quant_gs = int4_group_size_for(cfg, tp=mesh.tp if mesh is not None else 1)
         if kv_cache not in KV_CACHE_MODES:
             raise ValueError(f"kv_cache={kv_cache!r}; supported: None, 'int8', 'int4'")
         self.kv_cache, self.visual_tokens, self.act_quant = kv_cache, visual_tokens, act_quant
@@ -87,7 +111,6 @@ class VLAPolicy:
             int4_kernel = quant_mode == "int4" and self.device.type == "cuda"
         self.int4_kernel = bool(int4_kernel)
         if self.int4_kernel and quant_mode == "int4" and self.device.type == "cuda":
-            from ..models.quant import int4_group_size_for
             from ..ops.q4_matmul import KERNEL_GROUP_SIZES
 
             if torch_dtype(cfg) != torch.bfloat16:
@@ -95,8 +118,6 @@ class VLAPolicy:
                     f"the CUDA int4 kernel takes bf16 activations and {cfg.name!r} "
                     f"runs in {cfg.dtype}; pass int4_kernel=False (--int4_kernel off)"
                 )
-            if quant_gs is None:
-                quant_gs = int4_group_size_for(cfg)
             if quant_gs not in KERNEL_GROUP_SIZES:
                 raise ValueError(
                     f"the CUDA int4 kernel takes groups of {KERNEL_GROUP_SIZES} "
@@ -107,18 +128,16 @@ class VLAPolicy:
         tree = params.tree() if isinstance(params, nn.Module) else params
         del params
         # The JAX package cooks and quantizes on the host because one TPU v5e
-        # holds 15.75 GB. An 80 GB card has room to init, cook and quantize
-        # the 7B on the device, one stack at a time (models/quant.py works
-        # one layer of one stack at a time, so its f32 transients stay small).
-        tree = _to_device(tree, self.device)
-        if not cooked_weights:
-            tree = decode_layout_params(tree)
-        if quant_mode is not None:
-            from ..models.quant import int4_group_size_for, quantize_decode_params
-
-            if quant_gs is None:
-                quant_gs = int4_group_size_for(cfg)
-            tree = quantize_decode_params(tree, mode=quant_mode, group_size=quant_gs)
+        # holds 15.75 GB. Here each leaf is moved to the device, then cooked,
+        # quantized (one layer at a time, so the f32 transients stay small)
+        # and cut, before the next one comes: a single process is a mesh of
+        # one rank that keeps every leaf whole.
+        self.load_peak_gib = self.load_held_gib = None
+        tree = self._load(tree, cfg, mesh, cooked_weights, quant_mode, quant_gs)
+        self.mesh = mesh
+        self._dp_warned: set = set()
+        # under a mesh: the last 1024 decodes' rows, wall ms and B4 launches by body
+        self.decode_log = collections.deque(maxlen=1024)
         self.model = VLA(cfg, tree).eval()
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -133,6 +152,44 @@ class VLAPolicy:
         # Jacobi verification passes of the most recent decode (None after a
         # sequential one; 1 = the draft was accepted whole)
         self.last_verify_passes: Optional[int] = None
+
+    def _load(self, tree, cfg, mesh, cooked_weights: bool, quant_mode, quant_gs) -> Dict:
+        """This rank's cooked and quantized tree (the whole tree without a
+        mesh), built one leaf at a time (parallel.sharding.
+        shard_decode_leaves). Under a mesh on CUDA, the load's peak and what
+        it keeps are recorded (`load_peak_gib`, `load_held_gib`) and the
+        process's peak starts again after it."""
+        from ..models.config import PhiConfig
+        from ..models.param_tree import tree_leaves
+        from ..models.quant import quant_mode as tree_quant_mode
+        from ..parallel.mesh import ServingMesh
+        from ..parallel.sharding import shard_decode_leaves
+
+        if quant_mode is not None and isinstance(cfg.llm, PhiConfig):
+            raise ValueError("int8/int4 decode quantization supports Llama-family layer stacks "
+                             f"(gate/up/down SwiGLU); {cfg.name!r} has a Phi LLM")
+        if isinstance(tree, Mapping):
+            have = tree_quant_mode(tree)
+            if have is not None:  # cut as it is, as quantize_decode_params returns it
+                if not cooked_weights:
+                    raise ValueError(
+                        "params are already int8/int4-quantized (quantize_decode_params output, which "
+                        "implies the cooked layout); cooking again would transpose the quantized stacks "
+                        "away from their scales")
+                if quant_mode not in (None, have):
+                    raise ValueError(f"params are already {have}-quantized; re-quantizing to {quant_mode} "
+                                     "would compound rounding")
+                quant_mode = None
+            tree = tree_leaves(tree)
+        rank_mesh = mesh or ServingMesh(tp=1, dp=1, rank=0, device=self.device)
+        out = shard_decode_leaves(_to_device(tree, self.device), rank_mesh, cooked=cooked_weights, quant=quant_mode,
+                                  group_size=quant_gs)
+        if mesh is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            self.load_peak_gib = torch.cuda.max_memory_allocated(self.device) / 2**30
+            self.load_held_gib = torch.cuda.memory_allocated(self.device) / 2**30
+            torch.cuda.reset_peak_memory_stats(self.device)
+        return out
 
     @property
     def vocab_size(self) -> int:
@@ -201,6 +258,13 @@ class VLAPolicy:
         ids, mask, pixels = inputs
         if draft_tokens is not None:
             draft_tokens = torch.as_tensor(draft_tokens, dtype=torch.int32, device=self.device)
+        if self.mesh is not None:
+            from ..serving import ranks
+
+            if self.mesh.rank != 0:
+                raise RuntimeError(f"rank {self.mesh.rank} follows rank 0's decodes (serving.ranks.follow)")
+            if self.mesh.world > 1:
+                return ranks.lead(self, (ids, mask, pixels), draft_tokens, num_steps, opts)
         with torch.inference_mode():
             return greedy_decode_actions(
                 self.model.tree(), self.cfg, ids, mask, pixels, num_steps=num_steps,
@@ -263,26 +327,33 @@ def load_policy(
     visual_tokens: Optional[int] = None,
     int4_kernel: Optional[bool] = None,
     device="cuda",
+    mesh=None,
 ) -> VLAPolicy:
     """A policy on `device` from a local HF checkpoint directory: its
     weights converted on the device and cast to the config's dtype, its
     dataset statistics and its tokenizer (WordStubTokenizer when it ships
     none). Without a checkpoint, random weights drawn from `seed`. A missing
-    directory, shard or tensor raises; nothing falls back to random weights."""
+    directory, shard or tensor raises; nothing falls back to random weights.
+    The weights are read (or drawn) one leaf at a time and each is cooked
+    and quantized before the next (VLAPolicy).
+
+    `mesh` (a ServingMesh): every rank reads (or draws, from the same
+    generator in the same order) every leaf on its own device and keeps its
+    shard of it."""
     parse_quantize(quantize)  # reject a typo'd mode before the 15 GB load
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     cfg = get_config(model_name)
     if checkpoint:
-        from ..models.convert import cast_tree, load_checkpoint_dir, load_norm_stats
+        from ..models.convert import iter_checkpoint_leaves, load_norm_stats
 
-        params = cast_tree(load_checkpoint_dir(checkpoint, cfg, dev), torch_dtype(cfg))
+        params = iter_checkpoint_leaves(checkpoint, cfg, dev, torch_dtype(cfg))
         norm_stats = load_norm_stats(checkpoint)
         tokenizer = tokenizer_from_checkpoint(checkpoint)
     else:
-        from ..models.vlm import init_vla_params
+        from ..models.vlm import iter_vla_params
 
         tokenizer = tokenizer_from_checkpoint(None)
-        params = init_vla_params(torch.Generator(device=dev).manual_seed(seed), cfg)
+        params = iter_vla_params(torch.Generator(device=dev).manual_seed(seed), cfg)
         norm_stats = {
             "synthetic": {"action": {"q01": [-1.0] * 7, "q99": [1.0] * 7,
                                       "mask": [True] * 6 + [False]}}
@@ -290,7 +361,7 @@ def load_policy(
         unnorm_key = unnorm_key or "synthetic"
     return VLAPolicy(
         params, cfg, tokenizer, norm_stats, unnorm_key, center_crop, quantize=quantize,
-        kv_cache=kv_cache, visual_tokens=visual_tokens, int4_kernel=int4_kernel, device=dev,
+        kv_cache=kv_cache, visual_tokens=visual_tokens, int4_kernel=int4_kernel, device=dev, mesh=mesh,
     )
 
 

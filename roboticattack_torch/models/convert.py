@@ -23,11 +23,12 @@ import torch.nn.functional as F
 
 from ..utils.device import resolve_device
 from .config import LlamaConfig, PhiConfig, ViTConfig, VLAConfig
+from .param_tree import tree_from_leaves, tree_leaves
 from .safetensors_io import checkpoint_shard_files, read_state_dict
 
 __all__ = [
     "cast_tree", "checkpoint_shard_files", "convert_llama", "convert_projector", "convert_state_dict",
-    "convert_vit", "load_checkpoint_dir", "load_norm_stats", "read_state_dict",
+    "convert_vit", "iter_checkpoint_leaves", "load_checkpoint_dir", "load_norm_stats", "read_state_dict",
     "resample_pos_embed",
 ]
 
@@ -77,13 +78,20 @@ LLAMA_LAYER_NAMES = {
 
 def convert_llama(state: Mapping[str, torch.Tensor], cfg: LlamaConfig,
                   prefix: str = "language_model.", device="cpu") -> Dict:
+    return tree_from_leaves(iter_llama(state, cfg, prefix, device))
+
+
+def iter_llama(state: Mapping[str, torch.Tensor], cfg: LlamaConfig,
+               prefix: str = "language_model.", device="cpu"):
+    """(path, leaf) of convert_llama, each leaf read and stacked on `device`
+    only when the caller asks for it."""
     get = getter(state, prefix, device)
-    return {
-        "embed": get("model.embed_tokens.weight"),
-        "layers": stacked_layers(get, cfg.num_layers, "model.layers.{}.", LLAMA_LAYER_NAMES),
-        "norm": get("model.norm.weight"),
-        "lm_head": get("lm_head.weight").T.contiguous(),
-    }
+    yield ("embed",), get("model.embed_tokens.weight")
+    for key, name in LLAMA_LAYER_NAMES.items():
+        yield ("layers", key), stack(cfg.num_layers, lambda i, key=key, name=name: input_major(
+            key, get(f"model.layers.{i}." + name)))
+    yield ("norm",), get("model.norm.weight")
+    yield ("lm_head",), get("lm_head.weight").T.contiguous()
 
 
 def resample_pos_embed(pos: torch.Tensor, new_grid: int) -> torch.Tensor:
@@ -183,12 +191,46 @@ def convert_state_dict(state: Mapping[str, torch.Tensor], cfg: VLAConfig, device
     return {"vision": vision, "projector": convert_projector(state, device=device), "llm": llm}
 
 
+def iter_checkpoint_leaves(path: str, cfg: VLAConfig, device="cuda", dtype=None):
+    """(path, leaf) of load_checkpoint_dir (cast to `dtype` if given). The
+    files are opened and the device resolved now, so a missing directory,
+    shard or card raises here. For a Llama-family VLA, the vision towers and
+    the projector are converted whole, then each LLM leaf is read, stacked
+    and cast on `device` only when the caller asks for it, and no leaf is
+    kept once it is handed over: a caller that cuts and drops each one holds
+    one full stacked leaf at a time. A Phi VLA is converted whole."""
+    dev = resolve_device(device)
+    state = read_state_dict(path)
+
+    def cast(t):
+        return t if dtype is None else t.to(dtype)
+
+    def leaves():
+        if isinstance(cfg.llm, PhiConfig):
+            for p, leaf in tree_leaves(convert_state_dict(state, cfg, dev)):
+                yield p, cast(leaf)
+            return
+        vision = {"dino": convert_vit(state, cfg.dino, "vision_backbone.featurizer.", dev)}
+        if cfg.siglip is not None:
+            vision["siglip"] = convert_vit(state, cfg.siglip, "vision_backbone.fused_featurizer.", dev)
+        head = {"vision": vision, "projector": convert_projector(state, device=dev)}
+        del vision
+        for p, leaf in tree_leaves(head):
+            yield p, cast(leaf)
+        del head, leaf
+        for p, leaf in iter_llama(state, cfg.llm, device=dev):
+            leaf = cast(leaf)  # the stack as read goes before the yield
+            yield ("llm",) + p, leaf
+            del leaf  # and this one before the next stack is read
+
+    return leaves()
+
+
 def load_checkpoint_dir(path: str, cfg: VLAConfig, device="cuda") -> Dict:
     """A local HF OpenVLA checkpoint directory (safetensors shards, with or
     without an index) -> the parameter tree on `device`, in the
     checkpoint's dtypes. A missing directory, shard or tensor raises."""
-    dev = resolve_device(device)
-    return convert_state_dict(read_state_dict(path), cfg, dev)
+    return tree_from_leaves(iter_checkpoint_leaves(path, cfg, device))
 
 
 def cast_tree(tree: Mapping, dtype: torch.dtype) -> Dict:

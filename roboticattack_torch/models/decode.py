@@ -25,20 +25,36 @@ dequant-matmul kernel (ops/q4_matmul.py); the prefill (s > 8) dequantizes
 each layer's weights and runs one dense matmul, and the lm_head stays plain
 PyTorch.
 
-Not ported yet: `mesh` (tensor/data parallel), raising NotImplementedError
-with its ROADMAP.md item.
+`mesh` (parallel.mesh.ServingMesh): tensor- and data-parallel serving, one
+process a rank. The params are this rank's shard
+(parallel.sharding.shard_decode_params: Megatron column/row splits of the
+cooked stacks, the lm_head split on the vocab) and the inputs its replica's
+rows. Where JAX's GSPMD inserts the collectives, this decode calls them:
+one all-reduce over the tensor-parallel group after each row-parallel
+projection (o_w, down_w), on the widest accumulator the projection holds
+before its cast (f32 for int8 weight-only, int32 for w8a8, so w8a8 under TP
+equals one process bit for bit; the product's dtype for bf16, f32 and
+int4), one all-gather of the vocab-split logits a token, and, on the Jacobi
+tail, one MAX all-reduce over the world a pass, so every replica runs the
+passes JAX's one program runs over the global batch. The int4 kernel runs on
+each rank's local stacks, where JAX refuses its Pallas kernel under a model
+axis (GSPMD has no partitioning rule for it): a rank's stack is a plain
+local tensor here.
 """
 
 from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional, Tuple
 
+import dataclasses
+import types
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import not_ported
 from ..ops.attention import NEG_INF
+from ..parallel.mesh import ServingMesh
 from ..ops.q4_matmul import _unpack_nibbles, q4_matmul
 from ..utils.action_tokenizer import decode_tokens
 from ..utils.constants import ACTION_DIM, EMPTY_TOKEN_ID
@@ -52,12 +68,17 @@ _COOKED_KEYS = ("q_w", "k_w", "v_w", "o_w", "gate_w", "up_w", "down_w")
 KV_CACHE_MODES = (None, "int8", "int4")
 
 
-def _quantize_act(y, qmax: float = 127.0):
+def _quantize_act(y, qmax: float = 127.0, amax_reduce=None):
     """Dynamic per-token symmetric int8 activation quantization: [b, s, in]
     -> (int8 same shape, f32 scale [b, s, 1]). Division by the scale and
-    round-half-to-even, as the JAX package's `_quantize_act`."""
+    round-half-to-even, as the JAX package's `_quantize_act`.
+    `amax_reduce` takes each token's absmax to its maximum over the
+    tensor-parallel ranks (a row-parallel input holds a slice of the
+    contraction), so every rank quantizes with one process's scale."""
     yf = y.float()
     absmax = yf.abs().amax(dim=-1, keepdim=True)
+    if amax_reduce is not None:
+        absmax = amax_reduce(absmax)
     sy = torch.clamp_min(absmax / qmax, 1e-12)
     q = torch.clamp(torch.round(yf / sy), -qmax, qmax)
     return q.to(torch.int8), sy
@@ -72,9 +93,12 @@ def _int8_matmul(yq, w):
     return torch._int_mm(yq.reshape(b * s, k), w.t()).reshape(b, s, w.shape[0])
 
 
-def _proj(y, w, cooked: bool, scale=None, act8: bool = False, q4k: bool = False):
+def _proj(y, w, cooked: bool, scale=None, act8: bool = False, q4k: bool = False, tp=None):
     """y @ W for storage layout [in, out] (cooked=False) or the decode
-    layout [out, in] (cooked=True). `scale` is present iff `w` is quantized:
+    layout [out, in] (cooked=True). `scale` is present iff `w` is quantized.
+    `tp` (a ServingMesh, row-parallel projections only): the partial
+    products of this rank's slice of the contraction are summed over the
+    tensor-parallel ranks on the accumulator noted below, before the cast:
 
     int8 — per-output-channel scale [out], applied after an f32 contraction.
     int8 + act8 (the w8a8 prefill) — the activations quantized per token
@@ -84,10 +108,12 @@ def _proj(y, w, cooked: bool, scale=None, act8: bool = False, q4k: bool = False)
     stack rank). s <= 8 with q4k: the CUDA kernel (ops/q4_matmul.py). s <= 8
     without: the nibble halves dequantized to y.dtype, contracted against
     the even/odd activation channels. s > 8 (prefill): the same dequantized
-    halves interleaved back to [out, in], one matmul."""
+    halves interleaved back to [out, in], one matmul. Summed over `tp` in
+    y.dtype (f32 for int8 weight-only, int32 for w8a8)."""
+    red = (lambda t: t) if tp is None else tp.tp_sum
     if scale is not None and scale.dim() == w.dim():  # grouped int4 (packed s4)
         if q4k and y.shape[1] <= 8:
-            return q4_matmul(y, w, scale)
+            return red(q4_matmul(y, w, scale))
         out_dim, in_half = w.shape
         g = scale.shape[-1]
         lo, hi = _unpack_nibbles(w)
@@ -95,23 +121,24 @@ def _proj(y, w, cooked: bool, scale=None, act8: bool = False, q4k: bool = False)
         ld = (lo.float().reshape(out_dim, g, -1) * sc).to(y.dtype).reshape(out_dim, in_half)
         hd = (hi.float().reshape(out_dim, g, -1) * sc).to(y.dtype).reshape(out_dim, in_half)
         if y.shape[1] <= 8:
-            return y[..., 0::2] @ ld.T + y[..., 1::2] @ hd.T
+            return red(y[..., 0::2] @ ld.T + y[..., 1::2] @ hd.T)
         # interleaved after the cast, so the copy moves y.dtype elements
-        return y @ torch.stack([ld, hd], dim=-1).reshape(out_dim, 2 * in_half).T
+        return red(y @ torch.stack([ld, hd], dim=-1).reshape(out_dim, 2 * in_half).T)
     if scale is not None:  # per-output-channel int8
         if act8:
-            yq, sy = _quantize_act(y)
-            return ((_int8_matmul(yq, w).float() * sy) * scale).to(y.dtype)
-        out = torch.matmul(y.float(), w.float().T)
+            yq, sy = _quantize_act(y, amax_reduce=None if tp is None else tp.tp_max)
+            return ((red(_int8_matmul(yq, w)).float() * sy) * scale).to(y.dtype)
+        out = red(torch.matmul(y.float(), w.float().T))
         return (out * scale).to(y.dtype)
     if cooked:
-        return y @ w.T
-    return y @ w
+        return red(y @ w.T)
+    return red(y @ w)
 
 
-def _pj(p, key, y, cooked: bool, act8: bool = False, q4k: bool = False):
-    """Layer-dict projection: dispatches on the presence of the scale leaf."""
-    return _proj(y, p[key], cooked, p.get(key + "_scale"), act8, q4k)
+def _pj(p, key, y, cooked: bool, act8: bool = False, q4k: bool = False, tp=None):
+    """Layer-dict projection: dispatches on the presence of the scale leaf.
+    `tp`: the ServingMesh of a row-parallel projection (o_w, down_w)."""
+    return _proj(y, p[key], cooked, p.get(key + "_scale"), act8, q4k, tp)
 
 
 def _embed_rows(p_llm, ids, dtype):
@@ -144,9 +171,17 @@ def _lm_logits_all(p_llm, h):
     return torch.matmul(h.float(), w.float()) * sc
 
 
-def _lm_logits(p_llm, h):
+def _lm_logits(p_llm, h, tp=None):
     """[B, 1, D] hidden -> [B, V] f32 logits (single-position wrapper)."""
-    return _lm_logits_all(p_llm, h)[:, 0]
+    return _gathered_logits(p_llm, h, tp)[:, 0]
+
+
+def _gathered_logits(p_llm, h, tp=None):
+    """_lm_logits_all, with a vocab-split lm_head (`tp`, a ServingMesh)
+    gathered back to the whole [B, S, V] row over the tensor-parallel
+    ranks: the argmax then sees the row one process sees."""
+    logits = _lm_logits_all(p_llm, h)
+    return logits if tp is None else tp.tp_gather_last(logits)
 
 
 def decode_layout_params(params: Dict) -> Dict:
@@ -311,15 +346,16 @@ class _KVCache:
         return _attend(q, self.k[li], self.v[li], bias)
 
 
-def _mlp(cfg, p, x, cooked=False, act8=False, q4k=False):
+def _mlp(cfg, p, x, cooked=False, act8=False, q4k=False, tp=None):
     """SwiGLU with the SiLU applied in f32, then cast (the decode path's
-    numerics, which differ from the training forward's model-dtype SiLU)."""
+    numerics, which differ from the training forward's model-dtype SiLU).
+    `tp`: the ServingMesh that sums the row-parallel down_w."""
     y = rms_norm(x, p["mlp_norm"], cfg.rms_eps)
     gate = F.silu(_pj(p, "gate_w", y, cooked, act8, q4k).float()).to(x.dtype)
-    return x + _pj(p, "down_w", gate * _pj(p, "up_w", y, cooked, act8, q4k), cooked, act8, q4k)
+    return x + _pj(p, "down_w", gate * _pj(p, "up_w", y, cooked, act8, q4k), cooked, act8, q4k, tp)
 
 
-def _cached_block(lcfg, p, x, li, cache: _KVCache, at: int, cos, sin, bias, cooked, q4k):
+def _cached_block(lcfg, p, x, li, cache: _KVCache, at: int, cos, sin, bias, cooked, q4k, tp=None):
     """One decoder layer of the tail over s new positions (an s=1 step or
     the s=n Jacobi pass): their K/V go into the cache at slots at..at+s-1,
     then the queries attend over the cache. Weight-only projections."""
@@ -328,8 +364,41 @@ def _cached_block(lcfg, p, x, li, cache: _KVCache, at: int, cos, sin, bias, cook
     q, k = apply_rope(q, k, cos, sin)
     cache.write(li, at, k, v)
     attn = cache.attend(li, q, bias)
-    x = x + _pj(p, "o_w", attn.transpose(1, 2).reshape(x.shape), cooked, q4k=q4k)
-    return _mlp(lcfg, p, x, cooked, q4k=q4k)
+    x = x + _pj(p, "o_w", attn.transpose(1, 2).flatten(2), cooked, q4k=q4k, tp=tp)
+    return _mlp(lcfg, p, x, cooked, q4k=q4k, tp=tp)
+
+
+def _tp_layout(lcfg, layers, tp: int):
+    """The rank's local Llama config under `tp`-way tensor parallelism
+    (heads, kv heads and the intermediate split tp ways). Raises the JAX
+    decode's ValueErrors from the sizes alone, before any collective: kv
+    heads that tp does not divide, and an int4 group that would straddle a
+    row-parallel shard."""
+    if lcfg.num_kv_heads % tp or lcfg.num_heads % tp or lcfg.intermediate_size % tp:
+        raise ValueError(
+            f"decode TP needs num_kv_heads ({lcfg.num_kv_heads}), num_heads and intermediate_size "
+            f"divisible by the 'model' axis size ({tp})"
+        )
+    full_in = {"o_w": lcfg.num_heads * lcfg.head_dim, "down_w": lcfg.intermediate_size}
+    for k, in_dim in full_in.items():
+        sc = layers.get(k + "_scale")
+        if sc is not None and sc.dim() == 3:
+            # packed s4: the stored last axis is the rank's contraction/2
+            gs = 2 * layers[k].shape[-1] // sc.shape[-1]
+            if (in_dim // tp) % gs:
+                raise ValueError(
+                    f"int4 decode TP: {k}'s contraction per rank "
+                    f"({in_dim}/{tp}) is not a multiple of the "
+                    f"quantization group size ({gs}); re-quantize "
+                    f"with a group_size dividing {in_dim // tp} "
+                    f"(models.quant.int4_group_size_for(cfg, tp))"
+                )
+    # a namespace, not dataclasses.replace: LlamaConfig.head_dim derives from
+    # num_heads, and a rank's heads keep the whole model's head_dim
+    local = dataclasses.asdict(lcfg)
+    local.update(num_heads=lcfg.num_heads // tp, num_kv_heads=lcfg.num_kv_heads // tp,
+                 intermediate_size=lcfg.intermediate_size // tp, head_dim=lcfg.head_dim)
+    return types.SimpleNamespace(**local)
 
 
 class DecodeResult(NamedTuple):
@@ -368,26 +437,39 @@ def greedy_decode_actions(
     draft did not change or after num_steps-1 passes; a correct draft
     verifies in one. Position 0 is the prefill argmax. The result is the
     fixed point of the pass's own greedy operator: the sequential tokens up
-    to the s=1-vs-s=n accumulation order."""
+    to the s=1-vs-s=n accumulation order.
+
+    `mesh` (a ServingMesh): `params` is this rank's shard of the cooked tree
+    and the inputs are its replica's rows; every rank of the world calls
+    this with the same options (see the module docstring). `logits` hold
+    the whole vocabulary."""
     if isinstance(cfg.llm, PhiConfig):
         raise NotImplementedError(
             "predict_action targets the OpenVLA (Llama-family) stack; the "
             "Phi-2 zoo VLM is a forward/CE model, not an action policy"
         )
-    if mesh is not None:
-        raise not_ported("tensor/data-parallel decode (mesh)", "slice 3: TP and DP")
-
+    if mesh is not None and not isinstance(mesh, ServingMesh):
+        raise TypeError(f"mesh={mesh!r}: pass a parallel.ServingMesh (parallel.make_serving_mesh)")
     lcfg = cfg.llm
     dtype = torch_dtype(cfg)
     device = input_ids.device
     b, _ = input_ids.shape
     p_llm = params["llm"]
     layers = p_llm["layers"]
+    tp = mesh if mesh is not None and mesh.tp > 1 else None
+    if tp is not None:
+        lcfg = _tp_layout(lcfg, layers, tp.tp)
 
     if layers["q_w"].dtype == torch.int8 and not cooked_weights:
         raise ValueError(
             "int8/int4-quantized params (quantize_decode_params output) are "
             "always in the cooked layout; pass cooked_weights=True"
+        )
+    if tp is not None and layers["q_w"].shape[-2 if cooked_weights else -1] != lcfg.num_heads * lcfg.head_dim:
+        raise ValueError(
+            f"q_w holds {layers['q_w'].shape[-2 if cooked_weights else -1]} output channels, not this "
+            f"rank's {lcfg.num_heads * lcfg.head_dim}: pass the rank's shard "
+            "(parallel.sharding.shard_decode_params)"
         )
     qsc = layers.get("q_w_scale")
     packed4 = qsc is not None and qsc.dim() == layers["q_w"].dim()
@@ -474,12 +556,12 @@ def greedy_decode_actions(
         q, k, v = _qkv(lcfg, p, y, cooked_weights, act8)
         q, k = apply_rope(q, k, cos_all[:t0], sin_all[:t0])
         attn = _attend(q, k, v, prefix_bias)
-        x = x + _pj(p, "o_w", attn.transpose(1, 2).reshape(x.shape), cooked_weights, act8)
-        x = _mlp(lcfg, p, x, cooked_weights, act8)
+        x = x + _pj(p, "o_w", attn.transpose(1, 2).flatten(2), cooked_weights, act8, tp=tp)
+        x = _mlp(lcfg, p, x, cooked_weights, act8, tp=tp)
         cache.write(li, 0, k, v)
     hidden = rms_norm(x, p_llm["norm"], lcfg.rms_eps)
     last_hidden = hidden[torch.arange(b, device=device), last_idx][:, None]  # [B,1,D]
-    logits = _lm_logits(p_llm, last_hidden)
+    logits = _lm_logits(p_llm, last_hidden, tp)
     token = torch.argmax(logits, dim=-1)
 
     slot_ids = torch.arange(total, device=device)
@@ -490,7 +572,7 @@ def greedy_decode_actions(
     def run_layers(x, at, cos, sin, bias):
         for li in range(nl):
             x = _cached_block(lcfg, _layer(layers, li), x, li, cache, at, cos, sin, bias,
-                              cooked_weights, q4k)
+                              cooked_weights, q4k, tp)
         return rms_norm(x, p_llm["norm"], lcfg.rms_eps)
 
     # --- Jacobi verification tail
@@ -507,12 +589,14 @@ def greedy_decode_actions(
         passes = 0
         while passes < n - 1:
             h = run_layers(_embed_rows(p_llm, d, dtype), t0, cos_j, sin_j, j_bias)
-            out = torch.argmax(_lm_logits_all(p_llm, h), dim=-1).to(torch.int32)
+            out = torch.argmax(_gathered_logits(p_llm, h, tp), dim=-1).to(torch.int32)
             # out[:, i] = the greedy token after d[:, :i+1]; position 0 stays
             # the prefill argmax
             new_d = torch.cat([d[:, :1], out[:, :-1]], dim=1)
             passes += 1
             changed = bool((new_d != d).any())  # the pass's one host sync
+            if mesh is not None:  # any row of the global batch, as JAX's one program
+                changed = mesh.any_rank(changed)
             d = new_d
             if not changed:
                 break
@@ -526,7 +610,7 @@ def greedy_decode_actions(
         cos, sin = cos_all[pos][:, None, :], sin_all[pos][:, None, :]
         decode_valid = (slot_ids >= t0) & (slot_ids <= t0 + i)
         bias = torch.where(prefix_valid | decode_valid[None], 0.0, NEG_INF)[:, None, None, :]
-        logits = _lm_logits(p_llm, run_layers(x, t0 + i, cos, sin, bias))
+        logits = _lm_logits(p_llm, run_layers(x, t0 + i, cos, sin, bias), tp)
         token = torch.argmax(logits, dim=-1)
         tokens.append(token)
         step_logits.append(logits)

@@ -24,7 +24,7 @@ from ..ops.attention import causal_bias, mha, mha_chunked, padding_bias
 from ..ops.flash_attention import mha_flash
 from ..utils.constants import IGNORE_INDEX
 from .config import LlamaConfig
-from .param_tree import ParamTree
+from .param_tree import ParamTree, tree_from_leaves
 from .vit import _normal
 
 
@@ -165,6 +165,16 @@ def init_llama_params(
 ) -> Dict:
     """Random init with the JAX package's shapes and scales, drawn from `gen`
     on `device`."""
+    return tree_from_leaves(iter_llama_params(gen, cfg, dtype, device))
+
+
+def iter_llama_params(
+    gen: torch.Generator, cfg: LlamaConfig, dtype=torch.float32,
+    device: Optional[torch.device] = None,
+):
+    """(path, leaf) of init_llama_params, each leaf drawn only when the
+    caller asks for it (so a caller can cut and drop one before the next is
+    drawn); the draws and their order are init_llama_params'."""
     device = gen.device if device is None else device
     d, l, inter, v = cfg.hidden_size, cfg.num_layers, cfg.intermediate_size, cfg.vocab_size
     hd, h, hkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
@@ -175,19 +185,19 @@ def init_llama_params(
     def ones(shape):
         return torch.ones(shape, dtype=dtype, device=device)
 
-    return {
-        "embed": normal((v, d)),
-        "layers": {
-            "attn_norm": ones((l, d)),
-            "q_w": normal((l, d, h * hd)),
-            "k_w": normal((l, d, hkv * hd)),
-            "v_w": normal((l, d, hkv * hd)),
-            "o_w": normal((l, h * hd, d)),
-            "mlp_norm": ones((l, d)),
-            "gate_w": normal((l, d, inter)),
-            "up_w": normal((l, d, inter)),
-            "down_w": normal((l, inter, d)),
-        },
-        "norm": ones((d,)),
-        "lm_head": normal((d, v)),
-    }
+    yield ("embed",), normal((v, d))
+    layers = (
+        ("attn_norm", lambda: ones((l, d))),
+        ("q_w", lambda: normal((l, d, h * hd))),
+        ("k_w", lambda: normal((l, d, hkv * hd))),
+        ("v_w", lambda: normal((l, d, hkv * hd))),
+        ("o_w", lambda: normal((l, h * hd, d))),
+        ("mlp_norm", lambda: ones((l, d))),
+        ("gate_w", lambda: normal((l, d, inter))),
+        ("up_w", lambda: normal((l, d, inter))),
+        ("down_w", lambda: normal((l, inter, d))),
+    )
+    for key, draw in layers:
+        yield ("layers", key), draw()
+    yield ("norm",), ones((d,))
+    yield ("lm_head",), normal((d, v))

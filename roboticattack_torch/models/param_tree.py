@@ -12,7 +12,7 @@ greedy_decode_actions, ...) takes.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Iterable, Iterator, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -43,3 +43,23 @@ class ParamTree(nn.Module):
         out.update(self.named_parameters(recurse=False))
         out.update(self.named_buffers(recurse=False))
         return out
+
+
+def tree_leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], object]]:
+    """(path, leaf) of every leaf of a nested dict, in insertion order."""
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from tree_leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def tree_from_leaves(leaves: Iterable[Tuple[Tuple[str, ...], object]]) -> Dict:
+    """The nested dict of (path, leaf) pairs (tree_leaves' inverse)."""
+    out: Dict = {}
+    for path, leaf in leaves:
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out

@@ -73,12 +73,31 @@ def _quantize_grouped(w: torch.Tensor, group_size: int, what: str):
     return _pack_nibbles(q.reshape(wf.shape).to(torch.int8)), scale
 
 
-def int4_group_size_for(cfg) -> int:
+def int4_group_size_for(cfg, tp: int = 1) -> int:
     """Largest standard group size dividing every decode contraction dim of
     a VLAConfig (hidden, num_heads*head_dim, intermediate). 7B -> 128;
-    vla-tiny -> 64."""
+    vla-tiny -> 64.
+
+    `tp` > 1: the group size also divides each rank's contraction of the
+    row-parallel stacks (o_w: num_heads*head_dim/tp, down_w:
+    intermediate/tp), so no group straddles a shard boundary. 7B tp=2 ->
+    128, tp=4 -> 64 (11008/4 is not a multiple of 128); vla-tiny tp=2 ->
+    32."""
     lcfg = cfg.llm
-    dims = (lcfg.hidden_size, lcfg.num_heads * lcfg.head_dim, lcfg.intermediate_size)
+    row_parallel = (lcfg.num_heads * lcfg.head_dim, lcfg.intermediate_size)
+    if tp > 1 and any(d % tp for d in row_parallel):
+        raise ValueError(
+            f"int4 decode TP: tp={tp} does not divide the row-parallel "
+            f"contractions {row_parallel} of {cfg.name!r}; pick a tp that "
+            f"divides both"
+        )
+    dims = (
+        lcfg.hidden_size,
+        lcfg.num_heads * lcfg.head_dim,
+        lcfg.intermediate_size,
+        (lcfg.num_heads * lcfg.head_dim) // tp,
+        lcfg.intermediate_size // tp,
+    )
     for gs in (128, 64, 32, 16, 8, 4, 2):
         # 2 is the floor: values pack two per byte within a group
         if all(d % gs == 0 for d in dims):
@@ -108,6 +127,15 @@ def is_quantized(params: Dict) -> bool:
     """True if the LLM projection stacks are int8/int4
     (quantize_decode_params output)."""
     return quant_mode(params) is not None
+
+
+def quantize_matrix(w: torch.Tensor, mode: str, group_size: int, what: str):
+    """One [out, in] matrix in the cooked layout -> (int8 [out, in] or
+    packed int4 [out, in/2], f32 scale [out] or [out, in/group_size]): the
+    per-layer step of quantize_decode_params."""
+    if mode == "int8":
+        return _quantize_last_dim(w)
+    return _quantize_grouped(w, group_size, what)
 
 
 def quantize_decode_params(
@@ -150,9 +178,7 @@ def quantize_decode_params(
         )
 
     def q_one(w, what):
-        if mode == "int8":
-            return _quantize_last_dim(w)
-        return _quantize_grouped(w, group_size, what)
+        return quantize_matrix(w, mode, group_size, what)
 
     def q_stack(w, what):
         # one layer at a time: the f32 transients stay one layer's size

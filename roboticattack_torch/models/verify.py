@@ -34,7 +34,6 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import not_ported
 from .config import LlamaConfig, ViTConfig, VLAConfig, torch_dtype
 from .safetensors_io import read_safetensors_headers
 
@@ -655,8 +654,13 @@ def quant_decode_report(
 
     Gate: `ok` per mode = all-token agreement >= min_agreement, applied only
     to `gate_modes` (int8 weight-only is near-lossless on real LLM weights;
-    the other entries are reported for the user's own A/B). `tp` > 1 (the
-    deployment's tensor-parallel group size) is not ported."""
+    the other entries are reported for the user's own A/B).
+
+    `tp`: the deployment's tensor-parallel degree (cli --quant-tp). It picks
+    the int4 group size only (int4_group_size_for: 7B tp=4 serves gs=64,
+    not 128), so the gate tests the quantization that will be served; the
+    decode runs in one process (tensor-parallel serving equals it up to the
+    order of the row-parallel sums)."""
     import gc
 
     from ..utils.normalization import dual_normalize
@@ -666,8 +670,6 @@ def quant_decode_report(
     from .decode import decode_layout_params, greedy_decode_actions
     from .quant import int4_group_size_for, quantize_decode_params
 
-    if tp != 1:
-        raise not_ported("quant_decode_report(tp > 1)", "slice 3: TP and DP")
     parsed = [(m, parse_quant_mode(m)) for m in modes]  # validate ALL first
     device = params["llm"]["embed"].device
     dtype = torch_dtype(cfg)
@@ -696,7 +698,7 @@ def quant_decode_report(
     report: Dict = {}
     for mode, (wq, kv_cache, visual_tokens, qk) in parsed:
         wq, act, _ = resolve_quantize(wq)
-        qp = (quantize_decode_params(cooked, mode=wq, group_size=int4_group_size_for(cfg))
+        qp = (quantize_decode_params(cooked, mode=wq, group_size=int4_group_size_for(cfg, tp=tp))
               if wq is not None else cooked)
         tokens, actions = run(qp, kv_cache, visual_tokens, act, qk)
         del qp

@@ -125,7 +125,8 @@ class ViT(ParamTree):
 
 
 def _normal(gen: torch.Generator, shape, dtype, device, std=0.02) -> torch.Tensor:
-    return (torch.randn(shape, generator=gen, device=device) * std).to(dtype)
+    # in place: one f32 draw of the shape, not two (the same values)
+    return torch.randn(shape, generator=gen, device=device).mul_(std).to(dtype)
 
 
 def init_vit_params(

@@ -19,8 +19,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .config import PhiConfig, VLAConfig, torch_dtype
-from .llama import Llama, cross_entropy_loss, embed_tokens, init_llama_params, llama_apply
-from .param_tree import ParamTree
+from .llama import Llama, cross_entropy_loss, embed_tokens, iter_llama_params, llama_apply
+from .param_tree import ParamTree, tree_from_leaves, tree_leaves
 from .phi import Phi, init_phi_params, phi_apply
 from .vit import ViT, _normal, init_vit_params, vit_features
 
@@ -146,7 +146,29 @@ def init_vla_params(
 ) -> Dict:
     """Random params in the JAX pytree layout, in the config's dtype, drawn
     from `gen` on `device` (the generator's device by default)."""
+    return tree_from_leaves(iter_vla_params(gen, cfg, device))
+
+
+def iter_vla_params(gen: torch.Generator, cfg: VLAConfig, device: Optional[torch.device] = None):
+    """(path, leaf) of init_vla_params: the vision towers and the projector
+    as one draw each, then, for a Llama-family VLA, every LLM leaf drawn
+    only when the caller asks for it (models.llama.iter_llama_params) and
+    not kept once it is handed over; a Phi LLM as one draw. The same draws
+    in the same order, so the same values."""
     device = gen.device if device is None else device
+    vision, projector = _init_vision_projector(gen, cfg, device)
+    yield from tree_leaves({"vision": vision, "projector": projector})
+    del vision, projector
+    if isinstance(cfg.llm, PhiConfig):
+        llm = tree_leaves(init_phi_params(gen, cfg.llm, torch_dtype(cfg), device))
+    else:
+        llm = iter_llama_params(gen, cfg.llm, torch_dtype(cfg), device)
+    for path, leaf in llm:
+        yield ("llm",) + path, leaf
+        del leaf  # dropped before the next leaf is drawn
+
+
+def _init_vision_projector(gen: torch.Generator, cfg: VLAConfig, device) -> tuple:
     dtype = torch_dtype(cfg)
     vision: Dict = {"dino": init_vit_params(gen, cfg.dino, dtype, device)}
     if cfg.siglip is not None:
@@ -172,9 +194,7 @@ def init_vla_params(
             "fc1_w": normal((vdim, ldim)), "fc1_b": zeros(ldim),
             "fc2_w": normal((ldim, ldim)), "fc2_b": zeros(ldim),
         }
-    init_llm = init_phi_params if isinstance(cfg.llm, PhiConfig) else init_llama_params
-    llm = init_llm(gen, cfg.llm, dtype, device)
-    return {"vision": vision, "projector": projector, "llm": llm}
+    return vision, projector
 
 
 def param_count(params: Dict) -> int:

@@ -1,5 +1,5 @@
-"""The data axis of the data-parallel attack (the JAX package's
-`parallel/mesh.py`, the names the attack uses).
+"""The data axis of the data-parallel attack and the (data, model) grid of
+tensor- and data-parallel serving (the JAX package's `parallel/mesh.py`).
 
 JAX runs one program over a device mesh; here each rank is a process that
 holds its rows of the batch, the whole patch and all the weights:
@@ -8,11 +8,18 @@ holds its rows of the batch, the whole patch and all the weights:
   dist.broadcast(patch, src=0)  -> `replicate`;
   the gradient all-reduce       -> `all_reduce_sum` of the patch gradient;
   gathered per-example metrics  -> `all_gather_rows`.
+
+Serving (`make_serving_mesh`) lays the ranks out as JAX reshapes its
+devices, (data, model): rank = d * tp + m. Replica d is the tp consecutive
+ranks d*tp .. d*tp+tp-1 (its tensor-parallel group); the ranks with the
+same m form a data-parallel group. GSPMD inserts the serving collectives
+in JAX; here `ServingMesh` calls them explicitly.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+import os
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -35,12 +42,121 @@ def make_mesh(data=None, model: int = 1, device: str = "cuda") -> DataMesh:
     """The data axis over the initialized process group (a world of one,
     formed on `device`, if there is none)."""
     if model != 1:
-        raise not_ported("make_mesh(model > 1)", "slice 3: TP and DP")
+        raise not_ported("make_mesh(model > 1), the attack step under a model axis",
+                         "A6c: the attack under a model axis")
     info = distributed.current() or distributed.initialize_multihost(device=device)
     size = dist.get_world_size()
     if data is not None and data != size:
         raise ValueError(f"make_mesh(data={data}) over a process group of {size} ranks")
     return DataMesh(group=dist.group.WORLD, rank=dist.get_rank(), size=size, device=info.device)
+
+
+class ServingMesh(NamedTuple):
+    """A dp x tp serving grid over the process group: this rank's place in
+    it, its device, and the groups its collectives run over (None for a
+    group of one rank: such a collective is skipped)."""
+
+    tp: int
+    dp: int
+    rank: int
+    device: torch.device
+    tp_group: Any = None
+    dp_group: Any = None
+
+    @property
+    def m(self) -> int:
+        """This rank's index on the model axis."""
+        return self.rank % self.tp
+
+    @property
+    def d(self) -> int:
+        """This rank's replica (index on the data axis)."""
+        return self.rank // self.tp
+
+    @property
+    def world(self) -> int:
+        return self.tp * self.dp
+
+    def tp_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """`t` summed over this replica's tensor-parallel ranks, in place."""
+        if self.tp > 1:
+            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.tp_group)
+        return t
+
+    def tp_max(self, t: torch.Tensor) -> torch.Tensor:
+        """`t`'s elementwise maximum over this replica's tensor-parallel
+        ranks, in place."""
+        if self.tp > 1:
+            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.tp_group)
+        return t
+
+    def tp_gather_last(self, t: torch.Tensor) -> torch.Tensor:
+        """The tensor-parallel ranks' `t` concatenated on the last dim in
+        rank order (the vocab-split logits back to the whole row)."""
+        if self.tp == 1:
+            return t
+        parts = [torch.empty_like(t) for _ in range(self.tp)]
+        dist.all_gather(parts, t.contiguous(), group=self.tp_group)
+        return torch.cat(parts, dim=-1)
+
+    def any_rank(self, flag: bool) -> bool:
+        """True iff `flag` is true on any rank of the world (a MAX
+        all-reduce; every rank must call it)."""
+        if self.world == 1:
+            return bool(flag)
+        t = torch.tensor([int(flag)], dtype=torch.int32, device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return bool(t.item())
+
+
+def _env_world() -> int:
+    value = os.environ.get("WORLD_SIZE")
+    return int(value) if value else 1
+
+
+def make_serving_mesh(tp: int = 1, dp: int = 1, device: str = "cuda") -> Optional[ServingMesh]:
+    """The one dp x tp serving grid behind `--tp/--dp` on cli.serve and
+    cli.eval_libero: None for 1 x 1; otherwise joins the process group
+    (`initialize_multihost`: torchrun's environment, a card per local rank
+    or gloo when ranks share one) and builds the tensor- and data-parallel
+    groups. Every rank must call it. Raises ValueError, before joining
+    anything, unless the world holds exactly dp * tp processes."""
+    if tp < 1 or dp < 1:
+        raise ValueError(f"--tp {tp} / --dp {dp}: both must be >= 1")
+    if tp == 1 and dp == 1:
+        return None
+    need = tp * dp
+    have = dist.get_world_size() if dist.is_initialized() else _env_world()
+    if have != need:
+        raise ValueError(
+            f"--dp {dp} x --tp {tp} needs a world of {need} processes; this one has {have}. "
+            f"Launch it with `torchrun --nproc_per_node {need} -m ...`"
+        )
+    info = distributed.current() or distributed.initialize_multihost(device=device)
+    rank = dist.get_rank()
+    # every rank creates every group, in the same order (dist.new_group)
+    tp_groups = [dist.new_group([d * tp + m for m in range(tp)]) if tp > 1 else None for d in range(dp)]
+    dp_groups = [dist.new_group([d * tp + m for d in range(dp)]) if dp > 1 else None for m in range(tp)]
+    return ServingMesh(tp=tp, dp=dp, rank=rank, device=info.device,
+                       tp_group=tp_groups[rank // tp], dp_group=dp_groups[rank % tp])
+
+
+def batch_sharding(mesh) -> tuple:
+    """The PartitionSpec of a batch: its leading dim split over 'data'.
+    JAX returns a NamedSharding on `mesh`; a rank here finds its place in
+    its own mesh, so the spec does not depend on the argument, which keeps
+    the JAX signature."""
+    from .sharding import PartitionSpec
+
+    return PartitionSpec("data")
+
+
+def replicated(mesh) -> tuple:
+    """The PartitionSpec of a replicated tensor (the argument as in
+    batch_sharding)."""
+    from .sharding import PartitionSpec
+
+    return PartitionSpec()
 
 
 def _tree_map(fn, tree):

@@ -425,5 +425,5 @@ def test_mesh_helpers_refuse_what_they_cannot_do():
     assert tmesh.shard_batch({"a": np.arange(8), "b": None}, m)["a"].tolist() == [4, 5, 6, 7]
     with pytest.raises(ValueError, match="does not split evenly"):
         tmesh.shard_batch(np.arange(5), m)
-    with pytest.raises(NotImplementedError, match="slice 3: TP and DP"):
+    with pytest.raises(NotImplementedError, match="A6c: the attack under a model axis"):
         tmesh.make_mesh(model=2)

@@ -137,8 +137,10 @@ def test_decode_on_cpu_launches_no_kernel(cooked, inputs):
     ("mesh", object()),
 ])
 def test_unported_options_raise(cooked, inputs, kwarg, value):
+    """`mesh` is ported (test_torch_tp_serving.py); what is not a
+    ServingMesh is refused."""
     ids, mask, px = inputs
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(TypeError, match="ServingMesh"):
         t_decode(params_from_jax(cooked), T_TINY, torch.from_numpy(ids),
                  torch.from_numpy(mask), torch.from_numpy(px),
                  cooked_weights=True, **{kwarg: value})

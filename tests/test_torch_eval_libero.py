@@ -320,8 +320,8 @@ def test_eval_libero_cli_on_the_cpu(monkeypatch, tmp_path, patch_path, capsys):
     monkeypatch.setattr(tpolicy.torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         eval_libero.main(argv)
-    for flags in (["--tp", "2"], ["--dp", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    for flags in (["--tp", "2"], ["--dp", "2"]):  # a world of one process
+        with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
             eval_libero.main(argv + flags + ["--device", "cpu"])
 
 

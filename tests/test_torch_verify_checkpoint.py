@@ -224,8 +224,10 @@ def test_quant_decode_report_equals_jax():
                                       min_agreement=0.5)
     assert got == want
     assert "ok" in got["int8"] and "ok" not in got["vt8"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tverify.quant_decode_report(params_from_jax(jparams), VLA_TINY, modes=("int4",), tp=2)
+    # tp picks the int4 group size of the deployment (tiny: 32 at tp=2)
+    want = jverify.quant_decode_report(jparams, J_TINY, modes=("int4",), n_batches=1, tp=2)
+    assert tverify.quant_decode_report(params_from_jax(jparams), VLA_TINY, modes=("int4",), n_batches=1,
+                                       tp=2) == want
 
 
 # ------------------------------------------------------------------ the CLI
@@ -273,7 +275,7 @@ def test_cli_quant_gate_rejects(tiny_dir, tmp_path):
 @pytest.mark.parametrize("flags,error", [
     (["--quant-modes", "fp8"], ValueError),
     (["--quant-modes", "int8+vt999"], SystemExit),
-    (["--quant-tp", "2"], NotImplementedError),
+    (["--quant-tp", "3"], ValueError),
 ])
 def test_cli_refuses_before_any_leg(tiny_dir, tmp_path, flags, error):
     with pytest.raises(error):
