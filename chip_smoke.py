@@ -107,6 +107,23 @@ Phases, each of which fails the run (non-zero exit, no result line) on error:
                eval phase. Then B4 against its plain version, timed, at each
                tp's per-rank shapes and every row count m those runs gave
                them (`phase_kernels_tp`).
+ 13. train   — the VLA trainer (`VLATrainer.run_training`, step by step) on
+               the seeded bf16 7B at full width and depth with flash and
+               remat, the towers frozen (the *-icy stage), fsdp on one rank,
+               lr 2e-5, 4 steps on one dummy batch of 8: step 1 (lr 0)
+               bit-equal, the loss falling strictly over steps 2-4, the
+               towers bit-equal, 64/32 B1/B2 launches a step, the peak
+               under 76 GiB beside the reckoning from the leaves, the share
+               of LLM elements step 2 changed; per step wall ms, one step's
+               forward+backward and update ms and its device profile; the
+               loss and five leaves' gradients through the kernels against
+               plain attention; the tiny train-then-attack on the card (the
+               JAX integration test's thresholds); then a torchrun job of
+               two `chip_smoke.py train-rank` processes on the card over
+               gloo (the 7B's widths with 2 LLM layers, bs 8 global, 3
+               steps, ddp then fsdp): exit 0, one parameter SHA-256 across
+               ranks and strategies, losses within 1e-2 of one process,
+               B1/B2 on every rank.
 Then one JSON line of per-kernel numbers, the card line, and the result line.
 
 Imports nothing of JAX or of the JAX package.
@@ -138,11 +155,14 @@ import torch
 import torch.nn.functional as F
 
 from roboticattack_torch.attacks import engine
+from roboticattack_torch.attacks.optimizer import cosine_schedule_with_warmup
 from roboticattack_torch.cli import attack as attack_cli
-from roboticattack_torch.data import batch_iterator, dummy_frame_iterator
+from roboticattack_torch.data import batch_iterator, collate, dummy_frame_iterator
+from roboticattack_torch.eval.libero import LiberoEvalConfig, apply_patch_to_frame
 from roboticattack_torch.eval.policy import VLAPolicy, load_policy
 from roboticattack_torch.models import build_config, convert, get_config, safetensors_io
 from roboticattack_torch.models.convert import LLAMA_LAYER_NAMES, VIT_BLOCK_NAMES
+from roboticattack_torch.models.param_tree import tree_from_leaves, tree_leaves
 from roboticattack_torch.models.vlm import init_vla_params, param_count, vla_forward
 from roboticattack_torch.ops import flash_attention as fa
 from roboticattack_torch.ops import kernel_build
@@ -154,9 +174,11 @@ from roboticattack_torch.ops.q4_matmul import (
     reset_launches,
 )
 from roboticattack_torch.serving.http import ActionServer
+from roboticattack_torch.training import TrainConfig, VLATrainer, trainable_mask
 from roboticattack_torch.utils.constants import IGNORE_INDEX
 from roboticattack_torch.utils.labels import build_tma_target_tokens
-from roboticattack_torch.utils.prompting import WordStubTokenizer
+from roboticattack_torch.utils.normalization import dual_normalize
+from roboticattack_torch.utils.prompting import WordStubTokenizer, build_vla_example
 
 MODEL = "openvla-7b"
 SEED = 0
@@ -2174,17 +2196,23 @@ def torchrun_attack(nproc: int, semantics: str, out_dir: str, profile_dir=None) 
             "--data_parallel", "true", "--ddp_semantics", semantics, "--output", out_dir]
     if profile_dir:
         argv += ["--profile", profile_dir]
+    rc, secs, out = run_job(argv, DDP_TIMEOUT_S, f"torchrun --nproc_per_node {nproc} ({semantics})")
+    return rc, secs, rank_lines(out), out[-3000:]
+
+
+def run_job(argv: list, timeout: float, label: str) -> tuple:
+    """`argv` from the repo root in its own process group, killed whole past
+    `timeout` seconds: (exit code, seconds, its output)."""
     t = time.perf_counter()
     proc = subprocess.Popen(argv, cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True, start_new_session=True)
     try:
-        out, _ = proc.communicate(timeout=DDP_TIMEOUT_S)
+        out, _ = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, 9)
         proc.communicate()
-        raise AssertionError(f"torchrun --nproc_per_node {nproc} ({semantics}) ran past {DDP_TIMEOUT_S} s")
-    secs = time.perf_counter() - t
-    return proc.returncode, secs, rank_lines(out), out[-3000:]
+        raise AssertionError(f"{label} ran past {timeout} s")
+    return proc.returncode, time.perf_counter() - t, out
 
 
 def rank_lines(out: str, prefix: str = "ddp rank") -> dict:
@@ -2531,6 +2559,386 @@ def phase_tp(card: str, root: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ train
+# The VLA trainer on the 7B: the frozen-tower stage of the registered *-icy
+# run configs (training/conf.py), fsdp (one rank: the same step as ddp), at
+# the reference's lr 2e-5, on one fixed dummy batch of 8, prompts padded to
+# 32 (S = 288). With bf16 weights and no f32 master copy (as in the JAX
+# package) an Adam step below half a bf16 ulp is lost: at 2e-5 the second
+# step moves ~0.29 of the LLM's elements, at 5e-4 ~0.98, but from 5e-5 up
+# the random model's loss on its batch rises (scripts/sweep_train_lr.py).
+TRAIN_BS, TRAIN_STEPS, TRAIN_LR = 8, 4, 2e-5
+TRAIN_PEAK_GIB = 76.0
+TRAIN_CHECK_LAYER = 16  # the layer whose q/k/v gradients are held against plain attention
+# the two gloo ranks: the 7B's widths with 2 LLM layers, bs 8 global, 3 steps
+RANK_LAYERS, RANK_STEPS = 2, 3
+TRAIN_TIMEOUT_S = 400
+# the tiny train-then-attack (tests/test_integration_attack.py of the JAX
+# package): the action is +0.8 on bright frames and -0.8 on dark ones
+BRIGHT, BRIGHT_IMG = 0.8, 56
+XYZ_BRIGHT = np.array([0.8, -0.8, 0.4])
+
+
+def train_config(**over) -> TrainConfig:
+    kw = dict(strategy="fsdp", freeze_vision_backbone=True, learning_rate=TRAIN_LR, warmup_ratio=0.0,
+              max_steps=TRAIN_STEPS)
+    return TrainConfig(**{**kw, **over})
+
+
+def train_memory_gib(params: dict, mask: dict) -> dict:
+    """What the trainer holds, from the leaves: the weights (frozen and
+    trainable), and per trainable element a gradient in the weights' dtype,
+    Adam's mu in f32 and nu in the weights' dtype."""
+    size = {True: 0, False: 0}
+    for path, t in tree_leaves(params):
+        size[mask[path]] += t.numel() * t.element_size()
+    trainable = sum(t.numel() for path, t in tree_leaves(params) if mask[path])
+    item = next(iter(params["llm"]["layers"].values())).element_size()
+    gib = {"frozen weights": size[False] / 2**30, "trainable weights": size[True] / 2**30,
+           "gradients": trainable * item / 2**30, "mu (f32)": trainable * 4 / 2**30,
+           "nu": trainable * item / 2**30}
+    gib["total"] = sum(gib.values())
+    gib["trainable_params"] = trainable
+    return gib
+
+
+def picked_grads(params: dict, cfg, batch, layer: int) -> tuple:
+    """One step's loss on `cfg` and the gradients of projector.fc1_w, layer
+    `layer`'s q_w / k_w / v_w and lm_head (the other leaves frozen; the
+    layer stacks as per-layer leaves, as the trainer passes them)."""
+    picks = {("projector", "fc1_w"): None, ("llm", "lm_head"): None,
+             **{("llm", "layers", k): layer for k in ("q_w", "k_w", "v_w")}}
+    leaves, want = {}, {}
+    for path, t in tree_leaves(params):
+        if path in picks and picks[path] is None:
+            t = want[".".join(path)] = t.detach().requires_grad_()
+        elif path in picks:
+            t = list(t)
+            t[layer] = want[f"llm.layers.{path[-1]}[{layer}]"] = t[layer].detach().requires_grad_()
+        leaves[path] = t
+    pixels = dual_normalize(batch.images).to(params["llm"]["embed"].dtype)
+    loss = vla_forward(tree_from_leaves(leaves.items()), cfg, batch.input_ids, batch.attention_mask,
+                       pixels, batch.labels).loss
+    loss.backward()
+    return loss.item(), {k: v.grad for k, v in want.items()}
+
+
+def grads_against_plain(params: dict, cfg, batch) -> dict:
+    """picked_grads through the kernels (B1/B2) against the plain attention
+    path (attn_impl="xla"): the loss within 1e-2 relative, each gradient's
+    cosine at least 0.99."""
+    xla_cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, attn_impl="xla"))
+    loss_f, grad_f = picked_grads(params, cfg, batch, TRAIN_CHECK_LAYER)
+    loss_x, grad_x = picked_grads(params, xla_cfg, batch, TRAIN_CHECK_LAYER)
+    rel = abs(loss_f - loss_x) / abs(loss_x)
+    cos = {k: F.cosine_similarity(g.float().flatten(), grad_x[k].float().flatten(), dim=0).item()
+           for k, g in grad_f.items()}
+    log(f"train: one step's loss through B1/B2 {loss_f:.6g} vs plain attention {loss_x:.6g} (rel diff "
+        f"{rel:.3g}, tol 1e-2); gradient cosines {cos} (tol 0.99)")
+    if not (rel <= 1e-2 and all(c >= 0.99 for c in cos.values())):
+        raise AssertionError(f"train: the kernel path's gradients disagree with plain attention: {rel}, {cos}")
+    return {"rel": rel, "cos": cos}
+
+
+def tree_digest(params: dict) -> str:
+    """SHA-256 over every leaf's bytes, in path order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for path, t in sorted(tree_leaves(params)):
+        h.update("/".join(path).encode())
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def rank_model():
+    """The two ranks' model: OpenVLA-7B's widths with RANK_LAYERS LLM layers."""
+    cfg = get_config(MODEL)
+    return dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, num_layers=RANK_LAYERS))
+
+
+def rank_training(cfg, strategy: str, mesh=None) -> dict:
+    """RANK_STEPS steps of the rank model on the fixed dummy batch: each
+    step's loss and B1/B2 launches, the digest of the whole tree, the peak."""
+    params = init_vla_params(torch.Generator(device=DEVICE).manual_seed(SEED), cfg)
+    batch = next(dummy_batches(TRAIN_BS))
+    torch.cuda.reset_peak_memory_stats()
+    trainer = VLATrainer(params, cfg, train_config(strategy=strategy, max_steps=RANK_STEPS), mesh=mesh,
+                         device=DEVICE)
+    del params
+    losses, launches, ms = [], [], []
+    for _ in range(RANK_STEPS):
+        fa.reset_launches()
+        t = time.perf_counter()
+        losses.append(trainer.run_training(iter([batch]), 1))
+        ms.append((time.perf_counter() - t) * 1e3)
+        launches.append(dict(fa.flash_attention.launches))
+    digest = tree_digest(trainer.full_params())
+    return {"losses": losses, "launches": launches, "step_ms": ms, "sha256": digest,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def train_rank_main(argv: list) -> int:
+    """One rank of the train phase's torchrun job (`chip_smoke.py
+    train-rank`): the rank model under ddp, then fsdp, each rank printing
+    one `train rank r/W: {json}` line in one write."""
+    from roboticattack_torch.parallel import distributed, make_mesh
+
+    distributed.initialize_multihost(device=DEVICE)
+    mesh = make_mesh(device=DEVICE)
+    out = {"backend": distributed.current().backend, "device": str(mesh.device)}
+    for strategy in ("ddp", "fsdp"):
+        out[strategy] = rank_training(rank_model(), strategy, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+    sys.stdout.write(f"train rank {mesh.rank}/{mesh.size}: {json.dumps(out)}\n")
+    sys.stdout.flush()
+    distributed.shutdown()
+    return 0
+
+
+def torchrun_train(nproc: int) -> tuple:
+    """`python -m torch.distributed.run --standalone --nproc_per_node N
+    chip_smoke.py train-rank` in its own process group (killed whole past
+    TRAIN_TIMEOUT_S): (exit code, seconds, the `train rank` lines by rank,
+    the output's tail)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(nproc),
+           os.path.abspath(__file__), "train-rank"]
+    rc, secs, out = run_job(cmd, TRAIN_TIMEOUT_S, f"torchrun train-rank x{nproc}")
+    return rc, secs, rank_lines(out, "train rank"), out[-3000:]
+
+
+def brightness_frames(batch: int, rng, bright=None, directional: bool = False):
+    """A numpy batch of the brightness task: frames near 0.65 (bright) or
+    0.35 (dark), the action +-0.8 on every dim (or, `directional`, an xyz
+    direction and +-0.5 on the rest)."""
+    tok = WordStubTokenizer()
+    rows = []
+    for _ in range(batch):
+        is_bright = bool(rng.integers(2)) if bright is None else bright
+        base = 0.65 if is_bright else 0.35
+        img = np.clip(base + rng.normal(0, 0.03, (BRIGHT_IMG, BRIGHT_IMG, 3)), 0, 1)
+        if directional:
+            xyz = XYZ_BRIGHT if is_bright else -XYZ_BRIGHT
+            action = np.concatenate([xyz, np.full(4, 0.5 if is_bright else -0.5)])
+        else:
+            action = np.full(7, BRIGHT if is_bright else -BRIGHT)
+        ids, labels = build_vla_example("press the lever", action, tok)
+        rows.append(dict(image=(img * 255).astype(np.uint8), input_ids=ids, labels=labels))
+    return collate(rows, pad_to=32)
+
+
+def brightness_batches(batch: int, seed: int, bright=None, directional: bool = False):
+    rng = np.random.default_rng(seed)
+    while True:
+        yield brightness_frames(batch, rng, bright, directional)
+
+
+def train_then_attack(device: str) -> dict:
+    """The JAX package's test_train_then_attack_flips_policy on the port:
+    train VLA_TINY (fp32, no kernel: the kernels take bf16) on the
+    brightness task, TMA-attack it toward the bright action on dark frames,
+    then run the patch through the eval paste and the decode policy."""
+    cfg = get_config("vla-tiny")
+    params = init_vla_params(torch.Generator(device=device).manual_seed(0), cfg)
+    trainer = VLATrainer(params, cfg, TrainConfig(strategy="ddp", learning_rate=2e-3, max_steps=160,
+                                                  max_grad_norm=1.0), device=device)
+    t = time.perf_counter()
+    final_loss = trainer.run_training(brightness_batches(8, seed=1), num_steps=160)
+    train_s = time.perf_counter() - t
+    trained = trainer.params
+
+    maskidx = list(range(7))
+    target = build_tma_target_tokens(np.full(7, BRIGHT), maskidx)
+    spec = engine.AttackSpec(objective="tma", geometry=False, inner_loop=2)
+    val = engine.make_val_step(spec, cfg, target, maskidx)
+    dark_val = engine.batch_to_device(brightness_frames(16, np.random.default_rng(2), bright=False), device)
+
+    def draws(seed, patch_hw, batch, inner=None):
+        return engine.draw_step(torch.Generator().manual_seed(seed), spec, batch.images.shape, patch_hw,
+                                batch.labels.shape, inner)
+
+    m0 = val(trained, torch.zeros((14, 14, 3), device=device), dark_val, draws(3, (14, 14), dark_val, 1))
+    step = engine.make_attack_step(spec, cfg, target, maskidx)
+    state = engine.init_attack_state(torch.Generator().manual_seed(4), (36, 36), device)
+    batches = brightness_batches(8, seed=5, bright=False)
+    for i in range(60):
+        lr = cosine_schedule_with_warmup(i, 5e-2, 3, 60)
+        batch = engine.batch_to_device(next(batches), device)
+        state, _ = step(trained, state, batch, lr, True, draws(6 + i, (36, 36), batch))
+    m1 = val(trained, state.patch, dark_val, draws(7, (36, 36), dark_val, 1))
+
+    stats = {"synthetic": {"action": {"q01": [-1.0] * 7, "q99": [1.0] * 7, "mask": [True] * 6 + [False]}}}
+    policy = VLAPolicy(trained, cfg, WordStubTokenizer(), stats, "synthetic", False, device=device)
+    eval_cfg = LiberoEvalConfig(x=10, y=10, resize_size=BRIGHT_IMG)
+    patch_np = state.patch.cpu().numpy()
+    rng = np.random.default_rng(21)
+    clean_xyz, patched_xyz = [], []
+    for _ in range(6):
+        frame = (np.clip(0.35 + rng.normal(0, 0.03, (BRIGHT_IMG, BRIGHT_IMG, 3)), 0, 1) * 255).astype(np.uint8)
+        clean_xyz.append(policy.get_action(frame, "press the lever")[:6].mean())
+        patched = apply_patch_to_frame(frame, patch_np, eval_cfg)
+        patched_xyz.append(policy.get_action(patched, "press the lever")[:6].mean())
+    return {"final_loss": final_loss, "train_s": train_s,
+            "baseline_success": m0["ex_success"].float().mean().item(),
+            "clean_ce": m0["ex_ce"].float().mean().item(),
+            "attacked_success": m1["ex_success"].float().mean().item(),
+            "attacked_ce": m1["ex_ce"].float().mean().item(),
+            "clean_mean": float(np.mean(clean_xyz)), "patched_mean": float(np.mean(patched_xyz))}
+
+
+def check_train_then_attack(r: dict) -> None:
+    """The JAX test's thresholds: the model learned the task (loss < 0.5);
+    dark frames are not already the bright action (< 0.3 success); the patch
+    cuts the CE to a quarter and flips at least a quarter of the examples;
+    through the eval paste and the decode, patched dark frames move the
+    mean xyz action up by more than 0.5 from clean ones (< -0.3)."""
+    checks = {
+        "final_loss < 0.5": r["final_loss"] < 0.5,
+        "baseline_success < 0.3": r["baseline_success"] < 0.3,
+        "attacked_ce < clean_ce * 0.25": r["attacked_ce"] < r["clean_ce"] * 0.25,
+        "attacked_success >= 0.25 and > baseline": (r["attacked_success"] >= 0.25
+                                                    and r["attacked_success"] > r["baseline_success"]),
+        "clean_mean < -0.3": r["clean_mean"] < -0.3,
+        "patched_mean > clean_mean + 0.5": r["patched_mean"] > r["clean_mean"] + 0.5,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"train-then-attack failed {failed}: {r}")
+
+
+def phase_train(card: str) -> dict:
+    """The 7B trainer (main path: VLATrainer.run_training, step by step),
+    the gradients through the kernels against plain attention, the tiny
+    train-then-attack, and two gloo ranks under ddp and fsdp."""
+    cfg = get_config(MODEL)
+    layers = cfg.llm.num_layers
+    batch_np = next(dummy_batches(TRAIN_BS))
+    batch = engine.batch_to_device(batch_np, DEVICE)
+    t = time.perf_counter()
+    params = init_vla_params(torch.Generator(device=DEVICE).manual_seed(SEED), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    mask = dict(tree_leaves(trainable_mask(params, train_config())))
+    reckon = train_memory_gib(params, mask)
+    log(f"train: OpenVLA-7B bf16 drawn in {init_s:.1f} s; {reckon['trainable_params']:,} trainable parameters "
+        f"(the towers frozen); reckoning GiB " + ", ".join(f"{k} {v:.2f}" for k, v in reckon.items()
+                                                        if k != "trainable_params"))
+    against = grads_against_plain(params, cfg, batch)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a host copy of every leaf: step 1 (lr 0) must leave each bit-equal, and
+    # step 2's change is counted against it
+    host = {path: t.to("cpu", copy=True) for path, t in tree_leaves(params)}
+    torch.cuda.reset_peak_memory_stats()
+    trainer = VLATrainer(params, cfg, train_config(), device=DEVICE)
+    del params
+    built_gib = torch.cuda.memory_allocated() / 2**30
+    losses, step_ms, launches = [], [], []
+    changed = None
+    for i in range(TRAIN_STEPS):
+        fa.reset_launches()  # each main-path step's count starts here
+        t = time.perf_counter()
+        losses.append(trainer.run_training(iter([batch_np]), 1))
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        launches.append(dict(fa.flash_attention.launches))
+        if i == 0:
+            moved = [p for p, t in tree_leaves(trainer.params) if not torch.equal(t, host[p].to(t.device))]
+            log(f"train: step 1 (lr 0) left {len(host) - len(moved)} of {len(host)} leaves bit-equal")
+            if moved:
+                raise AssertionError(f"train: step 1 at lr 0 moved {moved[:5]}")
+        if i == 1:
+            n = total = 0
+            for p, t in tree_leaves(trainer.params):
+                if p[0] == "llm":
+                    n += int((t != host[p].to(t.device)).sum())
+                    total += t.numel()
+            changed = n / total
+            log(f"train: step 2 (lr {TRAIN_LR:g}) changed {n:,} of {total:,} LLM elements: share {changed:.4f}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {"fwd": 2 * layers, "bwd": layers}
+    log(f"train: losses per step {losses}; wall ms per step {[round(x, 2) for x in step_ms]}; B1/B2 launches "
+        f"per step {launches} (expected {want}: {layers} layers x 2 B1 under remat, {layers} B2); peak "
+        f"{peak:.2f} GiB (limit {TRAIN_PEAK_GIB}), {built_gib:.2f} GiB once built, reckoned "
+        f"{reckon['total']:.2f} GiB before activations and transients [{card}]")
+    if any(n != want for n in launches):
+        raise AssertionError(f"train: B1/B2 launches per step {launches} != {want}")
+    if not (np.all(np.isfinite(losses)) and losses[1] > losses[2] > losses[3]):
+        raise AssertionError(f"train: the loss did not fall strictly over steps 2-4: {losses}")
+    if peak > TRAIN_PEAK_GIB:
+        raise AssertionError(f"train: peak {peak:.2f} GiB > {TRAIN_PEAK_GIB} GiB")
+    frozen = [p for p, t in tree_leaves(trainer.params)
+              if p[0] == "vision" and not torch.equal(t, host[p].to(t.device))]
+    if frozen:
+        raise AssertionError(f"train: frozen vision leaves moved: {frozen[:5]}")
+    log("train: every vision leaf bit-equal after the 4 steps")
+    del host
+
+    # one step split in its two halves (lr 0 past max_steps), then its device profile
+    placed = trainer.place(batch_np)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, grads = trainer.compute_grads(placed)
+    torch.cuda.synchronize()
+    grads_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    trainer.apply_gradients(grads)
+    torch.cuda.synchronize()
+    opt_ms = (time.perf_counter() - t) * 1e3
+    del grads
+    log(f"train: one step's forward+backward {grads_ms:.2f} ms, AdamW update {opt_ms:.2f} ms: optimizer share "
+        f"{opt_ms / (grads_ms + opt_ms):.3f} [{card}]")
+
+    def run_step():
+        trainer.step(batch_np)
+        torch.cuda.synchronize()
+
+    found = device_profile(run_step, float(np.median(step_ms[1:])), "train: one 7B step", card,
+                           match=("flash_fwd_kernel", "flash_bwd_", "nvjet", "gemm"))
+    del trainer, placed, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    tiny = train_then_attack(DEVICE)
+    log(f"train: tiny train-then-attack on the card in {time.perf_counter() - t:.1f} s (160 steps "
+        f"{tiny['train_s']:.1f} s): {tiny}")
+    check_train_then_attack(tiny)
+
+    rcfg = rank_model()
+    single = rank_training(rcfg, "ddp")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"train: the rank model ({RANK_LAYERS} LLM layers) in one process: losses {single['losses']}, "
+        f"launches {single['launches']}, step ms {[round(x, 2) for x in single['step_ms']]}, peak "
+        f"{single['peak_gib']:.2f} GiB [{card}]")
+    rc, secs, ranks, tail = torchrun_train(2)
+    if rc != 0 or sorted(ranks) != [0, 1]:
+        raise AssertionError(f"train: torchrun train-rank x2 exit {rc}, rank lines {sorted(ranks)}\n{tail}")
+    want_rank = {"fwd": 2 * RANK_LAYERS, "bwd": RANK_LAYERS}
+    digests = set()
+    for r, v in sorted(ranks.items()):
+        for strategy in ("ddp", "fsdp"):
+            run = v[strategy]
+            digests.add(run["sha256"])
+            rel = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], single["losses"]))
+            log(f"train: rank {r}/2 {strategy} ({v['backend']}, {v['device']}): losses {run['losses']} (max rel "
+                f"diff to one process {rel:.3g}, tol 1e-2), launches {run['launches']}, step ms "
+                f"{[round(x, 2) for x in run['step_ms']]}, peak {run['peak_gib']:.2f} GiB, sha256 "
+                f"{run['sha256'][:16]} (two processes sharing one card) [{card}]")
+            if rel > 1e-2 or any(n != want_rank for n in run["launches"]):
+                raise AssertionError(f"train: rank {r} {strategy}: losses {run['losses']} vs {single['losses']}, "
+                                     f"launches {run['launches']} != {want_rank}")
+    if len(digests) != 1:
+        raise AssertionError(f"train: parameter digests differ across ranks or strategies: {digests}")
+    log(f"train: torchrun x2 exit {rc} in {secs:.1f} s; one parameter sha256 across ranks and strategies")
+    return {"launches": launches, "losses": losses, "step_ms": step_ms, "peak_gib": peak, "reckon": reckon,
+            "changed": changed, "grads_ms": grads_ms, "opt_ms": opt_ms, "device": found, "against": against,
+            "tiny": tiny, "ranks": {r: {s: v[s]["launches"][0] for s in ("ddp", "fsdp")} for r, v in ranks.items()},
+            "rank_seconds": secs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA card",
@@ -2585,6 +2993,9 @@ def main() -> int:
         rows_by_tp[run["tp"]] = sorted(set(rows_by_tp.get(run["tp"], [])) | set(run["rows"]))
     tp_rows = phase_kernels_tp(bw, rows_by_tp)
     ddp = phase_ddp(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = phase_train(card)
 
     kernels = []
     for kind, (kname, replaces) in FLASH_KERNELS.items():
@@ -2598,7 +3009,11 @@ def main() -> int:
                                      ckpt["attack_launches"][kind],
                                  "verify_checkpoint TMA smoke (bs 2)": ver["smoke_launches"][kind],
                                  **{f"torchrun cli.attack --data_parallel, {label}, rank {r}": n[kind]
-                                    for label, run in ddp.items() for r, n in run["launches"].items()}},
+                                    for label, run in ddp.items() for r, n in run["launches"].items()},
+                                 **{f"VLATrainer 7B (fsdp, towers frozen), step {i + 1}": n[kind]
+                                    for i, n in enumerate(train["launches"])},
+                                 **{f"torchrun train-rank (7B, {RANK_LAYERS} layers), {s}, rank {r}, step 1": n[s][kind]
+                                    for r, n in train["ranks"].items() for s in ("ddp", "fsdp")}},
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "at": f"[{ATTACK_BS}, 32, {256 + PAD_TO}, 128] bf16 with a dummy batch's causal + "
@@ -2669,6 +3084,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["tp-rank"]:  # one rank of a phase_tp run (torchrun starts it)
         sys.exit(tp_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["train-rank"]:  # one rank of phase_train's gloo run
+        sys.exit(train_rank_main(sys.argv[2:]))
     try:
         rc = main()
     except Exception:

@@ -31,6 +31,7 @@ from ..parallel.mesh import all_gather_rows, broadcast_object, process_zero, rep
 from ..utils.constants import ACTION_DIM, ACTION_TOKEN_MIN, ACTION_TOKEN_ZERO
 from ..utils.labels import build_tma_target_tokens, gripper_open_rows
 from ..utils.profiling import StepTimer, maybe_trace
+from ..training import checkpointing
 from ..utils.tracking import Tracker
 from .artifacts import plot_loss_curve, save_checkpoint, save_history_pickles
 from .ddp import make_ddp_attack_step
@@ -201,36 +202,46 @@ class OpenVLAAttacker:
 
     def save_state(self, state: AttackState, iteration: int) -> str:
         """The resumable state (patch, AdamW moments, grad buffer, best
-        metric, histories) as attack_state/step-<N>.pt."""
-        d = os.path.join(self.save_dir, "attack_state")
-        os.makedirs(d, exist_ok=True)
-        path = os.path.join(d, f"step-{iteration:06d}.pt")
-        torch.save({
-            "patch": state.patch.cpu(), "m": state.opt.m.cpu(), "v": state.opt.v.cpu(),
-            "count": state.opt.count.cpu(), "grad_acc": state.grad_acc.cpu(),
+        metric, histories) as a checkpoint under attack_state/ (the JAX
+        package's layout: step-<N>-epoch-00/ and latest-checkpoint)."""
+        payload = {
+            "patch": state.patch, "grad_acc": state.grad_acc,
+            "opt": {"m": state.opt.m, "v": state.opt.v, "count": state.opt.count},
             "_best": float(self.best),
             "_histories": {k: list(v) for k, v in self.histories.items()},
-        }, path)
-        return path
+        }
+        return checkpointing.save_checkpoint(os.path.join(self.save_dir, "attack_state"), step=iteration,
+                                             params=payload)
 
     def load_state(self, resume_dir: str) -> tuple:
+        """The latest attack state under resume_dir/attack_state: a
+        checkpoint, or the newest step-<N>.pt of a run written before the
+        checkpoint layout."""
         d = os.path.join(resume_dir, "attack_state")
-        steps = sorted(int(m.group(1)) for f in (os.listdir(d) if os.path.isdir(d) else [])
-                       if (m := re.fullmatch(r"step-(\d+)\.pt", f)))
-        if not steps:
-            raise FileNotFoundError(f"no attack_state checkpoints under {resume_dir}")
-        payload = torch.load(os.path.join(d, f"step-{steps[-1]:06d}.pt"), map_location="cpu",
-                             weights_only=True)
+        path = checkpointing.latest_checkpoint(d)
+        if path is not None:
+            payload = checkpointing.restore_checkpoint(path)["params"]
+            step = int(re.match(r"step-(\d+)", os.path.basename(path)).group(1))
+            opt = payload["opt"]
+        else:
+            steps = sorted(int(m.group(1)) for f in (os.listdir(d) if os.path.isdir(d) else [])
+                           if (m := re.fullmatch(r"step-(\d+)\.pt", f)))
+            if not steps:
+                raise FileNotFoundError(f"no attack_state checkpoints under {resume_dir}")
+            step = steps[-1]
+            payload = torch.load(os.path.join(d, f"step-{step:06d}.pt"), map_location="cpu",
+                                 weights_only=True)
+            opt = payload
         dev = self.device
         state = AttackState(
             patch=payload["patch"].to(dev),
-            opt=AdamState(*(payload[k].to(dev) for k in ("m", "v", "count"))),
+            opt=AdamState(*(opt[k].to(dev) for k in ("m", "v", "count"))),
             grad_acc=payload["grad_acc"].to(dev),
         )
         self.best = float(payload["_best"])
         self.histories = {k: list(v) for k, v in payload["_histories"].items()}
         # saved after completing the step; resume at the next one
-        return state, steps[-1] + 1
+        return state, step + 1
 
     def _resume(self, resume_from: str) -> tuple:
         """load_state, or under a mesh rank 0's state, best and histories

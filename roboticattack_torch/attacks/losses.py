@@ -16,6 +16,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from ..models.config import VLAConfig
+from ..models.llama import ce_sums
 from ..models.vlm import action_logit_slice
 from ..utils.action_tokenizer import decode_tokens
 from ..utils.constants import (
@@ -91,14 +92,12 @@ def _expectation(sl: torch.Tensor, weights_over: float) -> torch.Tensor:
 
 def local_sums(objective: str, logits, labels, cfg: VLAConfig, mse_weight: float = 5.0) -> Dict[str, torch.Tensor]:
     """This batch's sums behind `objective`'s loss and metrics: the CE's
-    NLL sum and valid-token count (the arithmetic of cross_entropy_loss),
-    and each masked or row mean's numerator and count."""
+    NLL sum and valid-token count (models/llama.ce_sums), and each masked
+    or row mean's numerator and count."""
     sl = shifted_action_logits(logits, cfg, labels.shape[1])
     gt = labels[:, 1:]
-    valid = gt != IGNORE_INDEX
-    safe = torch.where(valid, gt, torch.zeros_like(gt)).long()
-    tok = torch.gather(torch.log_softmax(sl, dim=-1), -1, safe[..., None])[..., 0]
-    out = {"nll": -torch.where(valid, tok, torch.zeros_like(tok)).sum(), "n_valid": valid.sum()}
+    nll, n_valid = ce_sums(logits, labels)
+    out = {"nll": nll, "n_valid": n_valid}
     mask = gt > ACTION_TOKEN_BEGIN_IDX
     m = mask.float()
     if objective == "tma":

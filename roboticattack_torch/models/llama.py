@@ -6,6 +6,7 @@ Llama param layout.
 Params (the JAX pytree layout):
   embed:   [V, D]
   layers:  stacked {attn_norm, q_w, k_w, v_w, o_w, mlp_norm, gate_w, up_w, down_w}
+           (or, in the trainer's forward, lists of per-layer leaves)
            (stored input-major [D_in, D_out]; the decode cooks them to
            [L, out, in], models/decode.py decode_layout_params)
   norm:    [D]
@@ -121,7 +122,7 @@ def llama_apply(
 
     x = inputs_embeds
     layers = params["layers"]
-    for li in range(layers["q_w"].shape[0]):
+    for li in range(len(layers["q_w"])):  # a stack, or a list of per-layer leaves
         if remat:
             x = checkpoint(decoder_block, cfg, x, layers, li, bias, cos, sin, use_reentrant=False)
         else:
@@ -136,17 +137,23 @@ def embed_tokens(params: Dict, input_ids: torch.Tensor) -> torch.Tensor:
     return params["embed"][input_ids]
 
 
-def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Shifted CE: logits[:, :-1] predict labels[:, 1:]; IGNORE positions
-    excluded; mean over valid tokens, f32."""
+def ce_sums(logits: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The shifted CE's parts: logits[:, :-1] predict labels[:, 1:]; the
+    NLL summed over the positions whose label is not IGNORE, and their
+    count."""
     shift_logits = logits[:, :-1, :]
     shift_labels = labels[:, 1:]
     valid = shift_labels != IGNORE_INDEX
     safe = torch.where(valid, shift_labels, torch.zeros_like(shift_labels)).long()
     logprobs = torch.log_softmax(shift_logits, dim=-1)
     token_ll = torch.gather(logprobs, -1, safe[..., None])[..., 0]
-    loss_sum = -torch.where(valid, token_ll, torch.zeros_like(token_ll)).sum()
-    return loss_sum / valid.sum().clamp(min=1)
+    return -torch.where(valid, token_ll, torch.zeros_like(token_ll)).sum(), valid.sum()
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Shifted CE: mean over valid tokens, f32."""
+    loss_sum, n_valid = ce_sums(logits, labels)
+    return loss_sum / n_valid.clamp(min=1)
 
 
 class Llama(ParamTree):

@@ -107,7 +107,7 @@ def phi_apply(
 
     x = inputs_embeds
     layers = params["layers"]
-    for li in range(layers["q_w"].shape[0]):
+    for li in range(len(layers["q_w"])):  # a stack, or a list of per-layer leaves
         if remat:
             x = checkpoint(_phi_block, cfg, x, layers, li, bias, cos, sin, use_reentrant=False)
         else:

@@ -104,7 +104,7 @@ def vit_features(params: Dict, cfg: ViTConfig, images: torch.Tensor, remat: bool
     if cfg.pre_norm:
         x = layer_norm(x, params["norm_pre"]["scale"], params["norm_pre"]["bias"], cfg.ln_eps)
 
-    for li in range(params["blocks"]["qkv_w"].shape[0]):
+    for li in range(len(params["blocks"]["qkv_w"])):  # a stack, or a list of per-layer leaves
         if remat:
             x = checkpoint(_block, cfg, x, params["blocks"], li, use_reentrant=False)
         else:

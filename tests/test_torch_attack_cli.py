@@ -54,7 +54,8 @@ def test_tiny_cli_run_writes_the_jax_runners_artifacts(uada_run):
     assert any("TIMING_p50_s" in ln for ln in lines)
     patch = result.patch
     assert patch.shape == (50, 50, 3) and patch.min() >= 0.0 and patch.max() <= 1.0
-    assert sorted(os.listdir(out / "attack_state")) == ["step-000000.pt", "step-000002.pt"]
+    assert sorted(os.listdir(out / "attack_state")) == [
+        "latest-checkpoint", "step-000000-epoch-00", "step-000002-epoch-00"]
 
 
 def test_patch_pt_is_interchangeable_with_the_jax_package(uada_run, tmp_path):
@@ -85,10 +86,32 @@ def test_state_round_trip_and_resume(tmp_path):
                         opt=AdamState(torch.randn(8, 8, 3), torch.rand(8, 8, 3), torch.tensor(4, dtype=torch.int32)))
     runner.best = 0.25
     runner.histories = {"val_l1": [0.5, 0.25]}
-    runner.save_state(state, 7)
+    path = runner.save_state(state, 7)
     again = OpenVLAAttacker(params, VLA_TINY, str(tmp_path), attack)
     loaded, start = again.load_state(str(tmp_path))
     assert start == 8 and again.best == 0.25 and again.histories == {"val_l1": [0.5, 0.25]}
+    for a, b in zip(torch.utils._pytree.tree_leaves(loaded), torch.utils._pytree.tree_leaves(state)):
+        assert torch.equal(a, b)
+    assert os.path.realpath(tmp_path / "attack_state" / "latest-checkpoint") == path
+    assert os.path.basename(path) == "step-000007-epoch-00"
+
+
+def test_resume_reads_a_run_dir_of_step_files(tmp_path):
+    """A run dir whose attack_state/ holds step-<N>.pt files (the layout
+    before the checkpoint directories) still resumes from its newest one."""
+    params = init_vla_params(torch.Generator().manual_seed(0), VLA_TINY)
+    attack = AttackConfig(objective="tma", maskidx=[6], num_iter=2, inner_loop=1, batch_size=2,
+                          eval_every=1, eval_batches=1, patch_size=(3, 8, 8), warmup=0)
+    state = AttackState(patch=torch.rand(8, 8, 3), grad_acc=torch.randn(8, 8, 3),
+                        opt=AdamState(torch.randn(8, 8, 3), torch.rand(8, 8, 3), torch.tensor(4, dtype=torch.int32)))
+    (tmp_path / "attack_state").mkdir()
+    for step, best in ((3, 0.5), (11, 0.125)):
+        torch.save({"patch": state.patch, "m": state.opt.m, "v": state.opt.v, "count": state.opt.count,
+                    "grad_acc": state.grad_acc, "_best": best, "_histories": {"val_l1": [best]}},
+                   tmp_path / "attack_state" / f"step-{step:06d}.pt")
+    runner = OpenVLAAttacker(params, VLA_TINY, str(tmp_path / "out"), attack)
+    loaded, start = runner.load_state(str(tmp_path))
+    assert start == 12 and runner.best == 0.125 and runner.histories == {"val_l1": [0.125]}
     for a, b in zip(torch.utils._pytree.tree_leaves(loaded), torch.utils._pytree.tree_leaves(state)):
         assert torch.equal(a, b)
 

@@ -271,7 +271,8 @@ def test_runner_two_ranks(runner, name):
         for f in ("patch.pt", "patch.png", "patch.npy"):
             assert (out / tag / f).is_file(), f"{tag}/{f}"
     assert len(list((out / "last" / "val_related_data").glob("*.png"))) == 8  # the global val batch
-    assert sorted(os.listdir(out / "attack_state")) == ["step-000000.pt", "step-000002.pt"]
+    assert sorted(os.listdir(out / "attack_state")) == [
+        "latest-checkpoint", "step-000000-epoch-00", "step-000002-epoch-00"]
     lines = [json.loads(ln) for ln in (out / "run-metrics.jsonl").read_text().splitlines()]
     train = [ln for ln in lines if "TRAIN_loss" in ln]
     assert [ln["step"] for ln in train] == [0, 1, 2]  # one writer

@@ -190,3 +190,32 @@ def cli_rank(rank: int, world: int, workdir: str, argv: list) -> None:
     with open(f"stdout_rank{rank}.txt", "w") as f, contextlib.redirect_stdout(f):
         attack.main(argv)
 
+
+
+def train_rank(rank: int, world: int, init: str, payload: str, out_dir: str) -> None:
+    """The payload's training run under ddp and then fsdp on this rank:
+    each step's loss and collectives, what the rank keeps, and the whole
+    tree after the last step (tests/test_torch_training_ddp.py)."""
+    from roboticattack_torch.models.param_tree import tree_from_leaves, tree_leaves
+    from roboticattack_torch.parallel import distributed
+    from roboticattack_torch.training import TrainConfig, VLATrainer
+
+    mesh = _mesh(rank, world, init)
+    p = torch.load(payload, weights_only=False)
+    out = {}
+    for strategy in ("ddp", "fsdp"):
+        params = tree_from_leaves((path, t.clone()) for path, t in tree_leaves(p["params"]))
+        init_log = []
+        with counting_collectives(init_log):
+            trainer = VLATrainer(params, p["model_cfg"], TrainConfig(strategy=strategy, **p["train"]),
+                                 mesh=mesh, device="cpu")
+        losses, logs = [], []
+        for batch in p["batches"]:
+            logs.append([])
+            with counting_collectives(logs[-1]):
+                losses.append(trainer.run_training(iter([batch]), 1))
+        kept = {path: tuple(t.shape) for path, t in tree_leaves(trainer.params)}
+        full = {path: t.clone() for path, t in tree_leaves(trainer.full_params())}
+        out[strategy] = {"losses": losses, "collectives": logs, "init": init_log, "kept": kept, "params": full}
+    torch.save(out, os.path.join(out_dir, f"train_rank{rank}.pt"))
+    distributed.shutdown()
