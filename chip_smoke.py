@@ -107,7 +107,27 @@ Phases, each of which fails the run (non-zero exit, no result line) on error:
                eval phase. Then B4 against its plain version, timed, at each
                tp's per-rank shapes and every row count m those runs gave
                them (`phase_kernels_tp`).
- 13. train   — the VLA trainer (`VLATrainer.run_training`, step by step) on
+ 13. tp_attack — the attack step under a model axis on the 7B at full width
+               and depth: make_mesh(data, model=2) -> shard_leaves of the
+               seeded weights (each rank cuts every leaf as it is drawn) ->
+               make_attack_step(mesh=...), one UADA and one TMA inner step
+               from one fixed patch and fixed draws of a bs 8 dummy batch,
+               as torchrun jobs of `chip_smoke.py tp-attack-rank` on the one
+               card over gloo: tp 2 with shard_projector (2 processes) and
+               dp 2 x tp 2 (4 processes; the ranks load in turn). Per rank:
+               exit 0, each step's loss within 2e-3 relative of the one
+               process's and its patch gradient no further from the one
+               process's (1 - cosine) than twice the one process's own
+               distance from the f32 gradient of the same weights and step
+               (run in the phase), one patch SHA-256 across the ranks,
+               64 / 32 B1 / B2 launches, the collective inventory (one patch
+               and one packed-sums all-reduce on the data group, 5 activation
+               sums a layer on the model group, no gather of 1 MB), the load
+               and step peaks beside a reckoning from the leaves. Then B1/B2
+               at the ranks' local-head shapes [8, 16, 288, 128] and [4, 16,
+               288, 128], fed as strided views: bit-equal to the kernels on
+               all heads there, against the plain versions, timed.
+ 14. train   — the VLA trainer (`VLATrainer.run_training`, step by step) on
                the seeded bf16 7B at full width and depth with flash and
                remat, the towers frozen (the *-icy stage), fsdp on one rank,
                lr 2e-5, 4 steps on one dummy batch of 8: step 1 (lr 0)
@@ -176,6 +196,7 @@ from roboticattack_torch.ops.q4_matmul import (
 from roboticattack_torch.serving.http import ActionServer
 from roboticattack_torch.training import TrainConfig, VLATrainer, trainable_mask
 from roboticattack_torch.utils.constants import IGNORE_INDEX
+from roboticattack_torch.utils.profiling import counting_collectives
 from roboticattack_torch.utils.labels import build_tma_target_tokens
 from roboticattack_torch.utils.normalization import dual_normalize
 from roboticattack_torch.utils.prompting import WordStubTokenizer, build_vla_example
@@ -944,6 +965,44 @@ def check_close(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return err
 
 
+def flash_timing(shape, q, k, v, bias, do, stat_m, stat_l, bw: float, card: str) -> dict:
+    """B1 and B2 at `shape` timed as every kernel here (CUDA-graph replay),
+    beside their plain versions, their byte / operation bounds and the
+    scaled_dot_product_attention yardstick (a bf16 additive mask; for B2 its
+    forward+backward minus its forward)."""
+    bounds = attention_bounds(*shape, bw)
+    mask = bias[:, None].to(torch.bfloat16)
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+    def lib_fwd_bwd(_):
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+        torch.autograd.grad(out, (qg, kg, vg), do)
+
+    # device time, as the kernels': eager timing of the backward reads
+    # the host's autograd launch path whenever the host is slow
+    lib_fwd = device_ms(lambda _: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+    lib_both = device_ms(lib_fwd_bwd)
+    timing = {
+        "fwd": dict(ms=device_ms(lambda _: fa.flash_attention_fwd(q, k, v, bias)),
+                    plain_ms=device_ms(lambda _: fa.flash_attention_fwd_plain(q, k, v, bias),
+                                       calls=4, replays=3),
+                    library_ms=lib_fwd, **bounds["fwd"]),
+        "bwd": dict(ms=device_ms(lambda _: fa.flash_attention_bwd(q, k, v, bias, do, stat_m, stat_l)),
+                    plain_ms=device_ms(lambda _: fa.flash_attention_bwd_plain(q, k, v, bias, do),
+                                       calls=4, replays=3),
+                    library_ms=lib_both - lib_fwd, **bounds["bwd"]),
+    }
+    for kind, t in timing.items():
+        log(f"flash: {FLASH_KERNELS[kind][0]} {list(shape)}: kernel_ms={t['ms']:.5f} "
+            f"plain_ms={t['plain_ms']:.5f} library_ms={t['library_ms']:.5f} "
+            f"(scaled_dot_product_attention with a bf16 additive mask"
+            f"{'' if kind == 'fwd' else ', forward+backward minus forward'}; CUDA-graph replay) "
+            f"bound_ms={t['bound_ms']:.5f} ({t['bound_by']}: {t['bytes'] / 1e6:.2f} MB -> "
+            f"{t['byte_ms']:.5f} ms, {t['flops'] / 1e9:.2f} GFLOP -> {t['op_ms']:.5f} ms) "
+            f"achieved {t['flops'] / (t['ms'] * 1e-3) / 1e12:.2f} TFLOP/s [{card}]")
+    return timing
+
+
 def phase_flash(bw: float, card: str) -> dict:
     """B1 and B2 against their plain versions on the card; times at the
     attack step's shape."""
@@ -984,38 +1043,7 @@ def phase_flash(bw: float, card: str) -> dict:
             f"(tol 2^-7 x max|plain| each)")
         if timing:
             continue
-        # times at the attack step's shape
-        bounds = attention_bounds(*shape, bw)
-        mask = bias[:, None].to(torch.bfloat16)
-        qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
-
-        def lib_fwd_bwd(_):
-            out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
-            torch.autograd.grad(out, (qg, kg, vg), do)
-
-        # device time, as the kernels': eager timing of the backward reads
-        # the host's autograd launch path whenever the host is slow
-        lib_fwd = device_ms(lambda _: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
-        lib_both = device_ms(lib_fwd_bwd)
-        timing = {
-            "fwd": dict(ms=device_ms(lambda _: fa.flash_attention_fwd(q, k, v, bias)),
-                        plain_ms=device_ms(lambda _: fa.flash_attention_fwd_plain(q, k, v, bias),
-                                           calls=4, replays=3),
-                        library_ms=lib_fwd, **bounds["fwd"]),
-            "bwd": dict(ms=device_ms(lambda _: fa.flash_attention_bwd(q, k, v, bias, do, m, l)),
-                        plain_ms=device_ms(lambda _: fa.flash_attention_bwd_plain(q, k, v, bias, do),
-                                           calls=4, replays=3),
-                        library_ms=lib_both - lib_fwd, **bounds["bwd"]),
-        }
-        for kind, t in timing.items():
-            log(f"flash: {FLASH_KERNELS[kind][0]} {list(shape)}: kernel_ms={t['ms']:.5f} "
-                f"plain_ms={t['plain_ms']:.5f} library_ms={t['library_ms']:.5f} "
-                f"(scaled_dot_product_attention with a bf16 additive mask"
-                f"{'' if kind == 'fwd' else ', forward+backward minus forward'}; CUDA-graph replay) "
-                f"bound_ms={t['bound_ms']:.5f} ({t['bound_by']}: {t['bytes'] / 1e6:.2f} MB -> "
-                f"{t['byte_ms']:.5f} ms, {t['flops'] / 1e9:.2f} GFLOP -> {t['op_ms']:.5f} ms) "
-                f"achieved {t['flops'] / (t['ms'] * 1e-3) / 1e12:.2f} TFLOP/s [{card}]")
-        del qg, kg, vg
+        timing = flash_timing(shape, q, k, v, bias, do, m, l, bw, card)
     return {"timing": timing, "errs": errs}
 
 
@@ -2559,6 +2587,340 @@ def phase_tp(card: str, root: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ tp_attack
+# The attack step under a model axis (make_mesh(data, model) -> shard_params
+# -> make_attack_step(mesh=...)) on the 7B at full width and depth: a one
+# process reference, then two torchrun jobs of `chip_smoke.py
+# tp-attack-rank` on the one card over gloo (a correctness run, not a speed
+# one). (label, processes, tp, dp, shard_projector): tp 2 with the projector
+# cut; dp 2 x tp 2 with it whole, the projector layout of the JAX package's
+# 7B program (parallel/evidence.py).
+TP_ATTACK_RUNS = [
+    ("tp 2, shard_projector", 2, 2, 1, True),
+    ("dp 2 x tp 2", 4, 2, 2, False),
+]
+# each job: one UADA inner step, then one TMA inner step (the gripper dim),
+# from one fixed patch and fixed draws of the global batch
+TP_ATTACK_STEPS = (("uada", tuple(range(7))), ("tma", (6,)))
+TP_ATTACK_LR = 2e-3
+TP_ATTACK_TIMEOUT_S = 420
+TP_ATTACK_LOSS_RTOL = 2e-3
+# A rank's patch gradient may be no further from the f32 gradient of the
+# same weights and step, in 1 - cosine, than a quarter more than the one
+# process's bf16 gradient is: both round in bf16, in different orders (the
+# one process's gradient is itself ~0.998 from the f32 one, so the fixed
+# 0.999 between the two bf16 gradients cannot be met).
+TP_ATTACK_EXACT_FACTOR = 1.25
+MB = 1 << 20
+
+
+def tp_attack_steps(params: dict, cfg, batch_np, mesh=None) -> list:
+    """TP_ATTACK_STEPS on the global dummy batch `batch_np` (cut to this
+    replica's rows under a mesh), each from the same seeded patch with its
+    own seeded draws: the step (make_attack_step, apply_update False, so
+    the state's buffer is the patch gradient) then its update. Per step:
+    the loss, the gradient on the host, the updated patch's SHA-256, B1/B2
+    launches, the collectives (with their bytes and host seconds) and the
+    seconds."""
+    from roboticattack_torch.parallel import patch_digest, shard_batch
+
+    batch = engine.batch_to_device(batch_np if mesh is None else shard_batch(batch_np, mesh), DEVICE)
+    lr = torch.tensor(TP_ATTACK_LR, dtype=torch.float32, device=DEVICE)
+    out = []
+    for i, (objective, maskidx) in enumerate(TP_ATTACK_STEPS):
+        spec = engine.AttackSpec(objective=objective, inner_loop=1)
+        target = build_tma_target_tokens(np.zeros(7), list(maskidx)) if objective == "tma" else None
+        step = engine.make_attack_step(spec, cfg, target, list(maskidx), mesh)
+        state = engine.init_attack_state(torch.Generator().manual_seed(SEED), PATCH_HW, DEVICE)
+        draws = engine.draw_step(torch.Generator().manual_seed(SEED + 1 + i), spec, batch_np.images.shape,
+                                 PATCH_HW, batch_np.labels.shape)
+        log_ = []
+        torch.cuda.synchronize()
+        fa.reset_launches()  # this step's count starts here
+        t = time.perf_counter()
+        with counting_collectives(log_):
+            state, metrics = step(params, state, batch, TP_ATTACK_LR, False, draws)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = dict(fa.flash_attention.launches)
+        grad = state.grad_acc.clone()
+        state, _ = engine.update_patch(spec, state, grad, lr)
+        out.append({"objective": objective, "loss": float(metrics["loss"][0]), "grad": grad.cpu(),
+                    "sha256": patch_digest(state.patch), "launches": launches, "collectives": log_,
+                    "seconds": secs})
+    return out
+
+
+def tp_attack_inventory(log: list, cfg, tp: int, dp: int, rank: int, shard_projector: bool) -> dict:
+    """One inner step's collectives of a rank by kind, with the bytes a
+    rank gives to one of each kind and the host seconds of all of them: the
+    data group's patch and packed-sums all-reduces; the model group's
+    activation sums by their [B_local, S, width] shape; its row statistics
+    and argmax pairs; the largest gather in bytes. Raises on any other
+    collective and on any tensor with a dim of a logits row (V / tp or V)."""
+    b, d = ATTACK_BS // dp, cfg.llm.hidden_size
+    vl = cfg.llm.vocab_size // tp
+    d_idx, m_idx = divmod(rank, tp)
+    model = tuple(d_idx * tp + i for i in range(tp))
+    data = tuple(i * tp + m_idx for i in range(dp))
+    kinds, nbytes, seconds, gather_max = {}, {}, {}, 0
+    for c in log:
+        coll, op, ranks, shape = c.name, c.op, c.ranks, list(c.shape)
+        if vl in shape or cfg.llm.vocab_size in shape:
+            raise AssertionError(f"tp_attack: a logits-row-sized {coll} {shape}")
+        if coll == "all_gather":
+            gather_max = max(gather_max, c.nbytes * tp)
+        if ranks == data and coll == "all_reduce" and op == "SUM" and shape == [*PATCH_HW, 3]:
+            kind = "data: patch gradient"
+        elif ranks == data and coll == "all_reduce" and op == "SUM" and len(shape) == 1:
+            kind = "data: packed sums"
+        elif ranks == model and coll == "all_reduce" and len(shape) == 3 and shape[0] == b and op == "SUM" \
+                and shape[2] in (d, cfg.vision_dim):
+            kind = f"model: sum {shape}"
+        elif ranks == model and coll == "all_reduce" and c.nbytes < MB:
+            kind = f"model: row statistics {op}"
+        elif ranks == model and coll == "all_gather" and c.nbytes * tp < MB:
+            kind = "model: argmax pairs"
+        else:
+            raise AssertionError(f"tp_attack: an unexpected collective {coll} {op} over {ranks} {shape}")
+        kinds[kind] = kinds.get(kind, 0) + 1
+        nbytes[kind] = c.nbytes
+        seconds[kind] = seconds.get(kind, 0.0) + c.seconds
+    return {"kinds": kinds, "bytes": nbytes, "seconds": seconds, "gather_max_bytes": gather_max}
+
+
+def tp_attack_want(cfg, dp: int, shard_projector: bool, objective: str) -> dict:
+    """The inventory tp_attack_inventory must find in one inner step: one
+    patch and one packed-sums all-reduce on the data group; on the model
+    group 5 [B_local, 288, 4096] sums a layer (o and down forward, the
+    gradients of the two copies before q/k/v and gate/up, and o's again in
+    the remat re-forward, which stops after down's product), the embed
+    lookup's and lm_head's input gradient ([B_local, 32, 4096]), and under
+    shard_projector fc2's sum (forward and re-forward) and fc1's input
+    gradient; a MAX and a SUM of row statistics per log-softmax or
+    expectation, one gather per argmax."""
+    b, d, p = ATTACK_BS // dp, cfg.llm.hidden_size, cfg.num_patches
+    per_layer = 5 if cfg.remat else 4
+    stats = 1 if objective == "tma" else 2
+    want = {"data: patch gradient": 1, "data: packed sums": 1,
+            f"model: sum {[b, p + PAD_TO, d]}": per_layer * cfg.llm.num_layers,
+            f"model: sum {[b, PAD_TO, d]}": 2, "model: row statistics MAX": stats,
+            "model: row statistics SUM": stats, "model: argmax pairs": 1}
+    if shard_projector:
+        want[f"model: sum {[b, p, d]}"] = 2 if cfg.remat else 1
+        want[f"model: sum {[b, p, cfg.vision_dim]}"] = 1
+    return want
+
+
+def tp_attack_rank_main(argv: list) -> int:
+    """One rank of a tp_attack job (`chip_smoke.py tp-attack-rank TP DP
+    SHARD_PROJECTOR OUT`): make_mesh(data=DP, model=TP), its shard of the
+    seeded 7B drawn and cut leaf by leaf (shard_leaves), then
+    tp_attack_steps; the gradients to OUT/grads_rank<r>.pt and one
+    `tp-attack rank r/W: {json}` line in one write."""
+    from roboticattack_torch.models.vlm import iter_vla_params
+    from roboticattack_torch.parallel import distributed, make_mesh, shard_leaves
+
+    import torch.distributed as dist
+
+    t_all = time.perf_counter()
+    tp, dp, sp, out_dir = int(argv[0]), int(argv[1]), argv[2] == "1", argv[3]
+    mesh = make_mesh(data=dp, model=tp, device=DEVICE)
+    cfg = get_config(MODEL)
+    rank = mesh.d * tp + mesh.m
+    sizes = []
+
+    def drawn():
+        for path, leaf in iter_vla_params(torch.Generator(device=DEVICE).manual_seed(SEED), cfg):
+            sizes.append(leaf.numel())
+            yield path, leaf
+            del leaf  # dropped before the next leaf is drawn
+
+    torch.cuda.reset_peak_memory_stats()
+    # the ranks share one card here: they load in turn, each returning its
+    # draw's transients to the card before the next rank draws
+    for turn in range(tp * dp):
+        if turn == rank:
+            t = time.perf_counter()
+            params = tree_from_leaves(shard_leaves(drawn(), mesh, shard_projector=sp))
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t
+            torch.cuda.empty_cache()
+        dist.barrier()
+    load_peak = torch.cuda.max_memory_allocated() / 2**30
+    keeps = torch.cuda.memory_allocated() / 2**30
+    leaves_gib = sum(x.numel() * x.element_size() for _, x in tree_leaves(params)) / 2**30
+    # the seeded draw of the largest stack: f32, then its bf16 cast, then the cut
+    reckon = leaves_gib + max(sizes) * (4 + 2) / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    batch_np = next(dummy_batches(ATTACK_BS))
+    steps = tp_attack_steps(params, cfg, batch_np, mesh)
+    step_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.save([s.pop("grad") for s in steps], os.path.join(out_dir, f"grads_rank{rank}.pt"))
+    for s in steps:
+        s["inventory"] = tp_attack_inventory(s.pop("collectives"), cfg, tp, dp, rank, sp)
+    out = {"rank": rank, "d": mesh.d, "m": mesh.m, "backend": distributed.current().backend,
+           "device": str(mesh.device), "load_s": load_s, "load_peak_gib": load_peak, "keeps_gib": keeps,
+           "leaves_gib": leaves_gib, "reckon_peak_gib": reckon, "step_peak_gib": step_peak, "steps": steps,
+           "seconds": time.perf_counter() - t_all}
+    sys.stdout.write(f"tp-attack rank {rank}/{tp * dp}: {json.dumps(out)}\n")
+    sys.stdout.flush()
+    distributed.shutdown()
+    return 0
+
+
+def phase_flash_tp(bw: float, card: str) -> dict:
+    """B1 and B2 at the tp_attack ranks' shapes, [8, 16, 288, 128] (tp 2)
+    and [4, 16, 288, 128] (dp 2 x tp 2) with the dummy batch's bias: the
+    local heads taken as strided views of a whole [B, 32, 288, 128] q/k/v
+    and run through mha_flash (the model's path: contiguous copies) equal
+    the kernel on all heads bit for bit on those heads, and the plain
+    versions within check_close; timed with flash_timing."""
+    cfg = get_config(MODEL)
+    h, d = cfg.llm.num_heads, cfg.llm.head_dim
+    s = cfg.num_patches + PAD_TO
+    bias8 = slice_bias(next(dummy_batches(ATTACK_BS)), cfg.num_patches)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    out = {}
+    for label, b, tp in (("tp 2", ATTACK_BS, 2), ("dp 2 x tp 2", ATTACK_BS // 2, 2)):
+        bias = bias8[:b].contiguous()
+        whole = [torch.randn((b, h, s, d), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(4)]
+        heads = slice(h - h // tp, h)  # the last rank's heads
+        q, k, v, do = (t[:, heads] for t in whole)  # strided views, as the model's transposes give
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+        o = fa.mha_flash(qg, kg, vg, bias=bias[:, None])
+        o.backward(do)
+        o_all, m_all, l_all = fa.flash_attention_fwd(*whole[:3], bias)
+        g_all = fa.flash_attention_bwd(*whole[:3], bias, whole[3].contiguous(), m_all, l_all)
+        torch.cuda.synchronize()
+        same = torch.equal(o, o_all[:, heads]) and all(
+            torch.equal(g.grad, a[:, heads]) for g, a in zip((qg, kg, vg), g_all))
+        qc, kc, vc, doc = (t.contiguous() for t in (q, k, v, do))
+        errs = {"fwd": check_close(f"B1 {label} local heads", o, fa.flash_attention_fwd_plain(qc, kc, vc, bias)),
+                "bwd": max(check_close(f"B2 {label} local heads d{n}", g.grad, w) for n, g, w in
+                           zip("qkv", (qg, kg, vg), fa.flash_attention_bwd_plain(qc, kc, vc, bias, doc)))}
+        log(f"flash_tp: {label} rank's local heads {[b, h // tp, s, d]} as strided views of [{b}, {h}, {s}, {d}]: "
+            f"mha_flash bit-equal to the kernels on all heads there: {same}; B1 max_abs_err={errs['fwd']:.4g}, "
+            f"B2 max_abs_err={errs['bwd']:.4g} against the plain versions (tol 2^-7 x max|plain| each)")
+        if not same:
+            raise AssertionError(f"flash_tp {label}: local heads differ from the kernels on all heads")
+        _, m, l = fa.flash_attention_fwd(qc, kc, vc, bias)
+        timing = flash_timing((b, h // tp, s, d), qc, kc, vc, bias, doc, m, l, bw, card)
+        out[label] = {"shape": [b, h // tp, s, d], "errs": errs, "timing": timing}
+        del whole, q, k, v, do, qg, kg, vg, o, o_all, g_all
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp_attack(card: str) -> dict:
+    """The one-process reference and the TP_ATTACK_RUNS jobs and their
+    checks: every rank exits 0; per step each rank's loss within
+    TP_ATTACK_LOSS_RTOL of the one process's, its patch gradient's 1 -
+    cosine to the f32 gradient of the same weights and step within
+    TP_ATTACK_EXACT_FACTOR x the one process's bf16 gradient's, one patch
+    SHA-256 across the job's ranks, 64 / 32 B1 / B2 launches (remat), the
+    collective inventory of tp_attack_want with every gather under 1 MB;
+    each rank's load and step peaks beside the reckoning from its leaves.
+    Logged beside them: the cosine to the one process's gradient, and the
+    bytes and host seconds of each kind of collective."""
+    t_phase = time.perf_counter()
+    cfg = get_config(MODEL)
+    layers = cfg.llm.num_layers
+    batch_np = next(dummy_batches(ATTACK_BS))
+    t = time.perf_counter()
+    params = init_vla_params(torch.Generator(device=DEVICE).manual_seed(SEED), cfg)
+    torch.cuda.reset_peak_memory_stats()
+    ref = tp_attack_steps(params, cfg, batch_np)
+    ref_peak = torch.cuda.max_memory_allocated() / 2**30
+    # the same weights and steps in f32 with plain attention: the gradient
+    # both bf16 paths approximate, to see how far each is from it
+    cfg32 = dataclasses.replace(cfg, dtype="float32", llm=dataclasses.replace(cfg.llm, attn_impl="xla"))
+    params = tree_from_leaves((path, x.float()) for path, x in tree_leaves(params))
+    exact = tp_attack_steps(params, cfg32, batch_np)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for r, e in zip(ref, exact):
+        r["cos_exact"] = F.cosine_similarity(r["grad"].flatten().double(), e["grad"].flatten().double(), dim=0).item()
+        r["rel_exact"] = abs(r["loss"] - e["loss"]) / abs(e["loss"])
+        log(f"tp_attack: one process in f32 (plain attention), {e['objective']}: loss {e['loss']!r}; the bf16 "
+            f"step's loss {r['rel_exact']:.3g} from it relative, its patch-gradient cosine {r['cos_exact']:.6f}")
+    want_launches = {"fwd": 2 * layers, "bwd": layers}
+    for r in ref:
+        log(f"tp_attack: one process, {r['objective']} inner step: loss {r['loss']!r}, patch sha256 "
+            f"{r['sha256'][:16]}, B1/B2 launches {r['launches']}, {r['seconds']:.2f} s")
+        if r["launches"] != want_launches or not np.isfinite(r["loss"]):
+            raise AssertionError(f"tp_attack: the one-process step: {r['launches']}, loss {r['loss']}")
+    log(f"tp_attack: the one-process references (the draw, both steps in bf16 and in f32) in "
+        f"{time.perf_counter() - t:.1f} s, the bf16 steps' peak {ref_peak:.2f} GiB; the parent holds "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, {torch.cuda.memory_reserved() / 2**30:.2f} "
+        f"GiB reserved before the jobs [{card}]")
+    root = tempfile.mkdtemp(prefix="chip_smoke_tp_attack_")
+    out, failed = {}, []
+    try:
+        for label, nproc, tp, dp, sp in TP_ATTACK_RUNS:
+            out_dir = os.path.join(root, f"tp{tp}_dp{dp}")
+            os.makedirs(out_dir)
+            cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(nproc),
+                   os.path.abspath(__file__), "tp-attack-rank", str(tp), str(dp), str(int(sp)), out_dir]
+            rc, secs, text = run_job(cmd, TP_ATTACK_TIMEOUT_S, f"tp_attack {label}")
+            ranks = rank_lines(text, "tp-attack rank")
+            if rc != 0 or sorted(ranks) != list(range(nproc)):
+                raise AssertionError(f"tp_attack {label}: exit {rc}, rank lines {sorted(ranks)}\n{text[-3000:]}")
+            log(f"tp_attack: {label}: torchrun exit {rc} in {secs:.1f} s ({nproc} processes on one card over "
+                f"{ranks[0]['backend']}; process start, the leaf-by-leaf load and both steps) [{card}]")
+            res = {"seconds": secs, "launches": {}, "rel": {}, "cos": {}, "cos_exact": {}, "ranks": {}}
+            for r, v in sorted(ranks.items()):
+                grads = torch.load(os.path.join(out_dir, f"grads_rank{r}.pt"), weights_only=True)
+                log(f"tp_attack: {label}: rank {r} (d {v['d']}, m {v['m']}) on {v['device']}: load {v['load_s']:.1f} s, "
+                    f"peak {v['load_peak_gib']:.2f} GiB (keeps {v['keeps_gib']:.2f}; reckoned from the leaves: "
+                    f"its slices {v['leaves_gib']:.2f} + the largest stack's f32 draw and bf16 cast = "
+                    f"{v['reckon_peak_gib']:.2f}); step peak {v['step_peak_gib']:.2f} GiB; {v['seconds']:.1f} s "
+                    f"in all [{card}]")
+                res["ranks"][r] = {k: v[k] for k in ("load_s", "load_peak_gib", "keeps_gib", "leaves_gib",
+                                                     "reckon_peak_gib", "step_peak_gib", "seconds")}
+                for s, g, want, e in zip(v["steps"], grads, ref, exact):
+                    rel = abs(s["loss"] - want["loss"]) / abs(want["loss"])
+                    cos = F.cosine_similarity(g.flatten().double(), want["grad"].flatten().double(), dim=0).item()
+                    cos_exact = F.cosine_similarity(g.flatten().double(), e["grad"].flatten().double(), dim=0).item()
+                    bound = TP_ATTACK_EXACT_FACTOR * (1.0 - want["cos_exact"])
+                    inv = s["inventory"]
+                    expect = tp_attack_want(cfg, dp, sp, s["objective"])
+                    colls = ", ".join(f"{k}: {n} x {inv['bytes'][k]} B, {inv['seconds'][k]:.3f} s"
+                                      for k, n in inv["kinds"].items())
+                    log(f"tp_attack: {label}: rank {r} {s['objective']}: loss {s['loss']!r} (rel diff to one "
+                        f"process {rel:.3g}, tol {TP_ATTACK_LOSS_RTOL:g}), patch gradient: 1 - cosine to the f32 "
+                        f"gradient {1.0 - cos_exact:.6g} (bound {bound:.6g} = {TP_ATTACK_EXACT_FACTOR:g} x one "
+                        f"process's {1.0 - want['cos_exact']:.6g}), cosine to one process's {cos:.6f}, sha256 "
+                        f"{s['sha256'][:16]}, B1/B2 {s['launches']}, {s['seconds']:.2f} s, of which "
+                        f"{sum(inv['seconds'].values()):.2f} s in collectives (host clock, the card synchronized "
+                        f"around each); collectives {colls}; largest gather {inv['gather_max_bytes']} B")
+                    if rel > TP_ATTACK_LOSS_RTOL or not 1.0 - cos_exact <= bound:
+                        failed.append(f"{label} rank {r} {s['objective']}: loss rel {rel}, 1 - cosine to the "
+                                      f"f32 gradient {1.0 - cos_exact} > {bound}")
+                    if s["launches"] != want_launches:
+                        failed.append(f"{label} rank {r}: B1/B2 {s['launches']} != {want_launches}")
+                    if inv["kinds"] != expect or inv["gather_max_bytes"] >= MB:
+                        failed.append(f"{label} rank {r} {s['objective']}: collectives {inv} != {expect}")
+                    res["launches"][f"rank {r}, {s['objective']}"] = s["launches"]
+                    res["rel"][f"rank {r}, {s['objective']}"] = rel
+                    res["cos"][f"rank {r}, {s['objective']}"] = cos
+                    res["cos_exact"][f"rank {r}, {s['objective']}"] = cos_exact
+            for i, want in enumerate(ref):
+                digests = {v["steps"][i]["sha256"] for v in ranks.values()}
+                log(f"tp_attack: {label}: {want['objective']}: the ranks' updated patches {len(digests)} "
+                    f"SHA-256 ({next(iter(digests))[:16]}; one process {want['sha256'][:16]})")
+                if len(digests) != 1:
+                    failed.append(f"{label}: the ranks' patches differ: {digests}")
+            out[label] = res
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"tp_attack: the phase took {time.perf_counter() - t_phase:.1f} s")
+    if failed:  # every check of both jobs is logged first
+        raise AssertionError("tp_attack: " + "; ".join(failed))
+    return out
+
+
 # ------------------------------------------------------------------ train
 # The VLA trainer on the 7B: the frozen-tower stage of the registered *-icy
 # run configs (training/conf.py), fsdp (one rank: the same step as ddp), at
@@ -2995,6 +3357,10 @@ def main() -> int:
     ddp = phase_ddp(card)
     gc.collect()
     torch.cuda.empty_cache()
+    tpa = phase_tp_attack(card)
+    flash_tp = phase_flash_tp(bw, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     train = phase_train(card)
 
     kernels = []
@@ -3002,7 +3368,8 @@ def main() -> int:
         t = flash["timing"][kind]
         kernels.append({
             "name": kname, "route": "cuda", "source": FLASH_SOURCE, "replaces": replaces,
-            "launches": att["launches"][kind], "max_abs_err": flash["errs"][kind],
+            "launches": att["launches"][kind],
+            "max_abs_err": max([flash["errs"][kind]] + [r["errs"][kind] for r in flash_tp.values()]),
             "launches_by_path": {"attack CLI (seeded weights)": att["launches"][kind],
                                  f"attack CLI on RLDS data ({DATA_LAYER})": data["launches"][kind],
                                  "attack CLI --checkpoint (1 step x 1 inner + 1 val)":
@@ -3013,12 +3380,22 @@ def main() -> int:
                                  **{f"VLATrainer 7B (fsdp, towers frozen), step {i + 1}": n[kind]
                                     for i, n in enumerate(train["launches"])},
                                  **{f"torchrun train-rank (7B, {RANK_LAYERS} layers), {s}, rank {r}, step 1": n[s][kind]
-                                    for r, n in train["ranks"].items() for s in ("ddp", "fsdp")}},
+                                    for r, n in train["ranks"].items() for s in ("ddp", "fsdp")},
+                                 **{f"torchrun tp-attack-rank ({label}), {k} inner step": n[kind]
+                                    for label, run in tpa.items() for k, n in run["launches"].items()}},
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "at": f"[{ATTACK_BS}, 32, {256 + PAD_TO}, 128] bf16 with a dummy batch's causal + "
                   "padding bias, per launch; launches from the CLI run",
+            "max_abs_err_over": "phase_flash's shapes and the tp_attack ranks' local-head shapes",
             "on_main_path": True,
+            "per_rank_shapes": {
+                f"{label} rank {r['shape']}": {
+                    "ms": r["timing"][kind]["ms"], "plain_ms": r["timing"][kind]["plain_ms"],
+                    "bound_ms": r["timing"][kind]["bound_ms"], "bound_by": r["timing"][kind]["bound_by"],
+                    "library_ms": r["timing"][kind]["library_ms"], "max_abs_err": r["errs"][kind],
+                    "at": f"a {label} attack rank's local heads, bf16, the dummy batch's bias, per launch"}
+                for label, r in flash_tp.items()},
         })
     for mode, (kname, replaces, body) in KERNELS.items():
         def layer_sum(key, m=8):
@@ -3086,6 +3463,8 @@ if __name__ == "__main__":
         sys.exit(tp_rank_main(sys.argv[2:]))
     if sys.argv[1:2] == ["train-rank"]:  # one rank of phase_train's gloo run
         sys.exit(train_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["tp-attack-rank"]:  # one rank of a phase_tp_attack job
+        sys.exit(tp_attack_rank_main(sys.argv[2:]))
     try:
         rc = main()
     except Exception:

@@ -151,6 +151,11 @@ class OpenVLAAttacker:
         self.exact = attack.ddp_semantics == "exact"
         if self.exact and mesh is None:
             raise ValueError("ddp_semantics='exact' needs a data mesh (--data_parallel true)")
+        if mesh is not None and mesh.tp > 1:
+            # the JAX runner replicates the weights on a (data, model) mesh
+            # (its attacker.py `replicate(params, mesh)`): each rank of a
+            # model group runs its replica's step on the whole weights
+            mesh = mesh._replace(model_group=None, m=0, tp=1)
         self.cfg = cfg
         self.attack = attack
         self.save_dir = save_dir

@@ -20,6 +20,14 @@ all-reduce of its packed sums (losses.py `global_sums`), and one all-reduce
 of the patch gradient sums the ranks' contributions: the step at any world
 size is the single-process step on the whole batch (the JAX package's step
 on a sharded batch).
+
+A model axis (`make_mesh(model > 1)`) adds the Megatron split: `params` is
+this rank's shard (parallel.shard_params), the forward and backward call
+the model group's collectives (parallel/tensor_parallel.py) and the
+objectives reduce over the vocab slices (losses.py). The patch gradient
+then comes out equal on the ranks of a model group, so the data-axis
+all-reduces above stay one each per inner step, over the data group; the
+rows and draws are cut by the replica index d.
 """
 
 from __future__ import annotations
@@ -123,11 +131,11 @@ def draw_step(gen: Optional[torch.Generator], spec: AttackSpec, images_shape, pa
 
 
 def _objective_loss(spec: AttackSpec, cfg: VLAConfig, logits, labels, reduce=None,
-                    extra: Optional[Dict[str, torch.Tensor]] = None):
+                    extra: Optional[Dict[str, torch.Tensor]] = None, mesh=None):
     """(loss, metrics, sums) of the objective over this batch, or, with
     `reduce` (the all-reduce of a packed vector of sums), over the global
     batch. `extra` sums ride in the same reduce."""
-    local = local_sums(spec.objective, logits, labels, cfg, spec.mse_weight)
+    local = local_sums(spec.objective, logits, labels, cfg, spec.mse_weight, mesh)
     local.update(extra or {})
     sums = global_sums(local, reduce)
     loss, metrics = loss_from_sums(spec.objective, sums, spec.add_inverse_ce, spec.upa_alpha, spec.upa_beta)
@@ -167,8 +175,8 @@ def patch_loss_and_grad(spec: AttackSpec, cfg: VLAConfig, params: Dict, patch: t
                                     resize_patch=spec.resize_patch)
         pixels = dual_normalize(patched).to(torch_dtype(cfg))
         # the CE comes from the objective's sums, not out.loss
-        out = vla_forward(params, cfg, batch.input_ids, batch.attention_mask, pixels, None)
-        loss, metrics, _ = _objective_loss(spec, cfg, out.logits, labels, reduce)
+        out = vla_forward(params, cfg, batch.input_ids, batch.attention_mask, pixels, None, mesh=mesh)
+        loss, metrics, _ = _objective_loss(spec, cfg, out.logits, labels, reduce, mesh=mesh)
         if spec.objective == "tma":
             loss = loss / spec.accumulate_steps
         (grad,) = torch.autograd.grad(loss, patch)
@@ -272,26 +280,26 @@ def make_val_step(spec: AttackSpec, cfg: VLAConfig, target_tokens: Optional[np.n
         patched = apply_patch_batch(batch.images, patch, draws.inner[0], geometry=spec.geometry,
                                     resize_patch=spec.resize_patch)
         pixels = dual_normalize(patched).to(torch_dtype(cfg))
-        out = vla_forward(params, cfg, batch.input_ids, batch.attention_mask, pixels, None)
+        out = vla_forward(params, cfg, batch.input_ids, batch.attention_mask, pixels, None, mesh=mesh)
         rd = {}
         if spec.objective == "uada" and len(maskidx) > 0:
-            preds, gt, mask = action_preds_and_mask(out.logits, labels, cfg)
+            preds, gt, mask = action_preds_and_mask(out.logits, labels, cfg, mesh)
             gt_act = decode_tokens(torch.where(mask, gt, torch.full_like(gt, ACTION_TOKEN_ZERO)))
             rd = per_dim_relative_distance(decode_tokens(preds), gt_act, mask, maskidx)
         # the per-dim means ride in the objective's reduce as row sums
         rows = float(batch.images.shape[0])
         extra = {f"rd_{k}": v * rows for k, v in rd.items()}
         extra["rd_rows"] = torch.tensor(rows, device=batch.images.device)
-        loss, metrics, sums = _objective_loss(spec, cfg, out.logits, labels, reduce, extra)
+        loss, metrics, sums = _objective_loss(spec, cfg, out.logits, labels, reduce, extra, mesh)
         rd = {k: sums[f"rd_{k}"] / sums["rd_rows"] for k in rd}
         metrics = dict(metrics, loss=loss)
 
         base_obj = "upa" if spec.objective.startswith("upa") else spec.objective
-        per_ex = per_example_metrics(out.logits, labels, cfg, base_obj, spec.mse_weight)
+        per_ex = per_example_metrics(out.logits, labels, cfg, base_obj, spec.mse_weight, mesh)
         metrics.update({f"ex_{k}": v for k, v in per_ex.items()})
 
         # gripper flips are counted against the ORIGINAL labels
-        o_preds, o_gt, o_mask = action_preds_and_mask(out.logits, batch.labels, cfg)
+        o_preds, o_gt, o_mask = action_preds_and_mask(out.logits, batch.labels, cfg, mesh)
         grip_slot = torch.argsort((~o_mask).to(torch.uint8), dim=-1, stable=True)[:, 6:7]
         metrics["gripper_pred_token"] = torch.gather(o_preds, 1, grip_slot)[:, 0]
         metrics["gripper_gt_token"] = torch.gather(o_gt, 1, grip_slot)[:, 0]
@@ -316,8 +324,8 @@ def make_clean_filter_step(cfg: VLAConfig, mesh=None):
     @torch.no_grad()
     def clean(params: Dict, batch: AttackBatch) -> torch.Tensor:
         pixels = dual_normalize(batch.images).to(torch_dtype(cfg))
-        out = vla_forward(params, cfg, batch.input_ids, batch.attention_mask, pixels, None)
-        c_preds, c_gt, c_mask = action_preds_and_mask(out.logits, batch.labels, cfg)
+        out = vla_forward(params, cfg, batch.input_ids, batch.attention_mask, pixels, None, mesh=mesh)
+        c_preds, c_gt, c_mask = action_preds_and_mask(out.logits, batch.labels, cfg, mesh)
         last = torch.argsort((~c_mask).to(torch.uint8), dim=-1, stable=True)[:, 6:7]
         ok = torch.gather(c_preds, 1, last)[:, 0] == torch.gather(c_gt, 1, last)[:, 0]
         return ok if mesh is None else all_gather_rows(ok, mesh)

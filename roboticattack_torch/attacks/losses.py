@@ -7,6 +7,12 @@ Conventions:
   labels: [B, S] with IGNORE_INDEX outside the 7 action tokens (+EOS)
   the action slice of the vocab is [31744, 32000): slot 0 <-> token 31744
   <-> action ~ +1; slot 255 <-> token 31999 <-> action ~ -1.
+
+Under a model axis (`mesh` with tp > 1) `logits` is this rank's vocab slice
+[B, S, V/tp]: each reduction over the vocab (the log-softmax, the argmax,
+the action slice's softmax) goes through parallel/tensor_parallel.py and
+gives every model rank the whole rows' values, so everything after it is
+the one-process arithmetic on replicated [B, S] rows.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import torch
 from ..models.config import VLAConfig
 from ..models.llama import ce_sums
 from ..models.vlm import action_logit_slice
+from ..parallel.tensor_parallel import vocab_argmax, vocab_expectation, vocab_token_logprob
 from ..utils.action_tokenizer import decode_tokens
 from ..utils.constants import (
     ACTION_TOKEN_BEGIN_IDX,
@@ -59,25 +66,24 @@ def shifted_action_logits(logits: torch.Tensor, cfg: VLAConfig, text_len: int) -
 
 
 def action_preds_and_mask(
-    logits: torch.Tensor, labels: torch.Tensor, cfg: VLAConfig
+    logits: torch.Tensor, labels: torch.Tensor, cfg: VLAConfig, mesh=None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(argmax token preds [B, S-1], gt labels [B, S-1], action mask [B, S-1])."""
     sl = shifted_action_logits(logits, cfg, labels.shape[1])
     gt = labels[:, 1:]
-    return sl.argmax(dim=-1), gt, gt > ACTION_TOKEN_BEGIN_IDX
+    return vocab_argmax(sl, mesh), gt, gt > ACTION_TOKEN_BEGIN_IDX
 
 
 def _decode_gt(gt: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return decode_tokens(torch.where(mask, gt, torch.full_like(gt, ACTION_TOKEN_ZERO)))
 
 
-def _expectation(sl: torch.Tensor, weights_over: float) -> torch.Tensor:
+def _expectation(sl: torch.Tensor, weights_over: float, mesh=None) -> torch.Tensor:
     """sum softmax(action-slice logits) * (i + 1) / weights_over."""
-    probs = torch.softmax(sl[..., ACTION_TOKEN_MIN : ACTION_TOKEN_MIN + N_ACTION_BINS], dim=-1)
     reweigh = torch.arange(1, N_ACTION_BINS + 1, dtype=torch.float32, device=sl.device)
     if weights_over != 1.0:
         reweigh = reweigh / weights_over
-    return (probs * reweigh).sum(dim=-1)
+    return vocab_expectation(sl, ACTION_TOKEN_MIN, ACTION_TOKEN_MIN + N_ACTION_BINS, reweigh, mesh)
 
 
 # --- the objectives as sums --------------------------------------------------------
@@ -90,18 +96,19 @@ def _expectation(sl: torch.Tensor, weights_over: float) -> torch.Tensor:
 # loss while its gradient stays this rank's contribution: the ranks'
 # gradients then sum to the whole batch's (the JAX package's sharded step).
 
-def local_sums(objective: str, logits, labels, cfg: VLAConfig, mse_weight: float = 5.0) -> Dict[str, torch.Tensor]:
+def local_sums(objective: str, logits, labels, cfg: VLAConfig, mse_weight: float = 5.0,
+               mesh=None) -> Dict[str, torch.Tensor]:
     """This batch's sums behind `objective`'s loss and metrics: the CE's
     NLL sum and valid-token count (models/llama.ce_sums), and each masked
     or row mean's numerator and count."""
     sl = shifted_action_logits(logits, cfg, labels.shape[1])
     gt = labels[:, 1:]
-    nll, n_valid = ce_sums(logits, labels)
+    nll, n_valid = ce_sums(logits, labels, mesh)
     out = {"nll": nll, "n_valid": n_valid}
     mask = gt > ACTION_TOKEN_BEGIN_IDX
     m = mask.float()
     if objective == "tma":
-        pred_act = decode_tokens(sl.argmax(dim=-1))
+        pred_act = decode_tokens(vocab_argmax(sl, mesh))
         gt_act = _decode_gt(gt, mask)
         diff = (pred_act - gt_act).abs()
         row_any = mask.any(dim=-1).float()
@@ -110,16 +117,15 @@ def local_sums(objective: str, logits, labels, cfg: VLAConfig, mse_weight: float
                    ok_rows=(((pred_act == gt_act) | ~mask).all(dim=-1).float() * row_any).sum(),
                    any_rows=row_any.sum())
     elif objective == "uada":
-        expectation = _expectation(sl, float(N_ACTION_BINS))
+        expectation = _expectation(sl, float(N_ACTION_BINS), mesh)
         hard = torch.where(gt > ACTION_TOKEN_ZERO, 0.0, 1.0)
-        action_slice = sl[..., ACTION_TOKEN_MIN : ACTION_TOKEN_MIN + N_ACTION_BINS]
-        pred_act = decode_tokens(action_slice.argmax(dim=-1) + ACTION_TOKEN_MIN)
+        pred_act = decode_tokens(vocab_argmax(sl, mesh, ACTION_TOKEN_MIN, ACTION_TOKEN_MIN + N_ACTION_BINS))
         gt_act = _decode_gt(gt, mask)
         max_distance = torch.where(gt_act > 0, (gt_act + 1.0).abs(), (gt_act - 1.0).abs())
         out.update(sq=(((mse_weight * expectation - mse_weight * hard) ** 2) * m).sum(), n_action=m.sum(),
                    uad=((pred_act - gt_act).abs() / max_distance * m).sum())
     elif objective == "upa":
-        xyz_pred, xyz_gt = _xyz(_expectation(sl, 1.0), gt, mask)
+        xyz_pred, xyz_gt = _xyz(_expectation(sl, 1.0, mesh), gt, mask)
         out.update(angle=(cosine_similarity(xyz_pred, xyz_gt) + 1.0).sum(),
                    dist=torch.linalg.vector_norm(xyz_pred - xyz_gt, dim=-1).sum(),
                    rows=torch.tensor(float(gt.shape[0]), device=gt.device))
@@ -260,23 +266,22 @@ def per_dim_relative_distance(pred_actions, gt_actions, mask, maskidx: Sequence[
 
 # --- per-example metrics (val aggregation with host-side example filters) -------
 
-def per_example_ce(logits, labels, cfg: VLAConfig) -> torch.Tensor:
+def per_example_ce(logits, labels, cfg: VLAConfig, mesh=None) -> torch.Tensor:
     """[B]: mean CE over each row's valid shifted labels."""
     sl = shifted_action_logits(logits, cfg, labels.shape[1])
     gt = labels[:, 1:]
     valid = gt != IGNORE_INDEX
-    lp = torch.log_softmax(sl, dim=-1)
-    tok = torch.gather(lp, -1, torch.where(valid, gt, torch.zeros_like(gt)).long()[..., None])[..., 0]
+    tok = vocab_token_logprob(sl, torch.where(valid, gt, torch.zeros_like(gt)).long(), mesh)
     return _row_masked_mean(-tok, valid)
 
 
 def per_example_metrics(logits, labels, cfg: VLAConfig, objective: str,
-                        mse_weight: float = 5.0) -> Dict[str, torch.Tensor]:
+                        mse_weight: float = 5.0, mesh=None) -> Dict[str, torch.Tensor]:
     """Per-row versions of each objective's val metrics."""
-    preds, gt, mask = action_preds_and_mask(logits, labels, cfg)
+    preds, gt, mask = action_preds_and_mask(logits, labels, cfg, mesh)
     pred_act = decode_tokens(preds)
     gt_act = _decode_gt(gt, mask)
-    out: Dict[str, torch.Tensor] = {"ce": per_example_ce(logits, labels, cfg)}
+    out: Dict[str, torch.Tensor] = {"ce": per_example_ce(logits, labels, cfg, mesh)}
     if objective == "tma":
         out["l1"] = _row_masked_mean((pred_act - gt_act).abs(), mask)
         out["success"] = ((pred_act == gt_act) | ~mask).all(dim=-1).float()
@@ -284,14 +289,14 @@ def per_example_metrics(logits, labels, cfg: VLAConfig, objective: str,
         out["rel_dist"] = _row_masked_mean((pred_act - gt_act).abs() / max_boundary, mask)
     elif objective == "uada":
         sl = shifted_action_logits(logits, cfg, labels.shape[1])
-        expectation = _expectation(sl, float(N_ACTION_BINS))
+        expectation = _expectation(sl, float(N_ACTION_BINS), mesh)
         hard = torch.where(gt > ACTION_TOKEN_ZERO, 0.0, 1.0)
         out["mse_distance"] = _row_masked_mean((mse_weight * expectation - mse_weight * hard) ** 2, mask)
         max_d = torch.where(gt_act > 0, (gt_act + 1.0).abs(), (gt_act - 1.0).abs())
         out["uad"] = _row_masked_mean((pred_act - gt_act).abs() / max_d, mask)
     elif objective.startswith("upa"):
         sl = shifted_action_logits(logits, cfg, labels.shape[1])
-        xyz_pred, xyz_gt = _xyz(_expectation(sl, 1.0), gt, mask)
+        xyz_pred, xyz_gt = _xyz(_expectation(sl, 1.0, mesh), gt, mask)
         out["angle"] = cosine_similarity(xyz_pred, xyz_gt) + 1.0
         out["xyz_dist"] = torch.linalg.vector_norm(xyz_pred - xyz_gt, dim=-1)
     return out

@@ -11,6 +11,13 @@ Params (the JAX pytree layout):
            [L, out, in], models/decode.py decode_layout_params)
   norm:    [D]
   lm_head: [D, V]
+
+Under a model axis (`mesh`, parallel.make_mesh(model > 1)) the params are
+this rank's slices (parallel.shard_params): q/k/v and gate/up
+column-parallel, o and down row-parallel, embed and lm_head split on the
+vocab. The forward then runs num_heads / tp and num_kv_heads / tp local
+heads and gives this rank's [B, S, V/tp] logits; the collectives are
+parallel/tensor_parallel.py's (the sums JAX's GSPMD inserts).
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import causal_bias, mha, mha_chunked, padding_bias
 from ..ops.flash_attention import mha_flash
+from ..parallel.tensor_parallel import copy_to_model, local_count, reduce_from_model, vocab_embed, vocab_token_logprob
 from ..utils.constants import IGNORE_INDEX
 from .config import LlamaConfig
 from .param_tree import ParamTree, tree_from_leaves
@@ -77,26 +85,35 @@ def _attention(cfg: LlamaConfig, q, k, v, bias):
     return mha(q, k, v, bias=bias)
 
 
+def local_heads(cfg: LlamaConfig, mesh=None) -> Tuple[int, int]:
+    """(query heads, key/value heads) of one rank: num_heads / tp and
+    num_kv_heads / tp; ValueError when tp does not divide both."""
+    return (local_count(cfg.num_heads, mesh, "num_heads"),
+            local_count(cfg.num_kv_heads, mesh, "num_kv_heads"))
+
+
 def decoder_block(cfg: LlamaConfig, x: torch.Tensor, layers: Dict, li: int,
-                  bias: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """One pre-norm decoder block on layer `li` of the stacked params. SiLU
-    runs in the model dtype (HF LlamaMLP), unlike the decode's f32 SiLU."""
-    b, s, d = x.shape
-    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+                  bias: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, mesh=None) -> torch.Tensor:
+    """One pre-norm decoder block on layer `li` of the stacked params (this
+    rank's heads and intermediate slice under a model axis). SiLU runs in
+    the model dtype (HF LlamaMLP), unlike the decode's f32 SiLU."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    h, hkv = local_heads(cfg, mesh)
     p = {name: t[li] for name, t in layers.items()}
 
-    y = rms_norm(x, p["attn_norm"], cfg.rms_eps)
+    y = copy_to_model(rms_norm(x, p["attn_norm"], cfg.rms_eps), mesh)
     q = (y @ p["q_w"]).reshape(b, s, h, hd).transpose(1, 2)
     k = (y @ p["k_w"]).reshape(b, s, hkv, hd).transpose(1, 2)
     v = (y @ p["v_w"]).reshape(b, s, hkv, hd).transpose(1, 2)
     q, k = apply_rope(q, k, cos, sin)
     attn = _attention(cfg, q, k, v, bias)
-    attn = attn.transpose(1, 2).reshape(b, s, d)
-    x = x + attn @ p["o_w"]
+    attn = attn.transpose(1, 2).reshape(b, s, h * hd)
+    x = x + reduce_from_model(attn @ p["o_w"], mesh)
 
-    y = rms_norm(x, p["mlp_norm"], cfg.rms_eps)
+    y = copy_to_model(rms_norm(x, p["mlp_norm"], cfg.rms_eps), mesh)
     gate = F.silu(y @ p["gate_w"])
-    return x + (gate * (y @ p["up_w"])) @ p["down_w"]
+    return x + reduce_from_model((gate * (y @ p["up_w"])) @ p["down_w"], mesh)
 
 
 def llama_apply(
@@ -107,10 +124,13 @@ def llama_apply(
     positions: Optional[torch.Tensor] = None,
     remat: bool = False,
     logits_tail: Optional[int] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """inputs_embeds [B, S, D] -> f32 logits [B, S, V], or [B, k, V] for the
-    last k positions with `logits_tail=k`. `remat` recomputes each decoder
-    block in the backward (torch.utils.checkpoint, non-reentrant)."""
+    last k positions with `logits_tail=k` (this rank's [.., V/tp] under a
+    model axis). `remat` recomputes each decoder block in the backward
+    (torch.utils.checkpoint, non-reentrant; the recompute runs the block's
+    collectives again, in the same order on every rank)."""
     b, s, _ = inputs_embeds.shape
     dev = inputs_embeds.device
     if positions is None:
@@ -124,35 +144,49 @@ def llama_apply(
     layers = params["layers"]
     for li in range(len(layers["q_w"])):  # a stack, or a list of per-layer leaves
         if remat:
-            x = checkpoint(decoder_block, cfg, x, layers, li, bias, cos, sin, use_reentrant=False)
+            x = checkpoint(decoder_block, cfg, x, layers, li, bias, cos, sin, mesh, use_reentrant=False)
         else:
-            x = decoder_block(cfg, x, layers, li, bias, cos, sin)
+            x = decoder_block(cfg, x, layers, li, bias, cos, sin, mesh)
     x = rms_norm(x, params["norm"], cfg.rms_eps)
     if logits_tail is not None:
         x = x[:, s - logits_tail :, :]
-    return (x @ params["lm_head"]).float()
+    return (copy_to_model(x, mesh) @ params["lm_head"]).float()
 
 
-def embed_tokens(params: Dict, input_ids: torch.Tensor) -> torch.Tensor:
-    return params["embed"][input_ids]
+def check_shard(params: Dict, cfg, mesh) -> None:
+    """ValueError unless the decoder params (Llama or Phi) hold this rank's
+    slices: its query heads and vocab rows under a model axis, all of them
+    without one (a whole tree given to a rank, or a slice to one process)."""
+    tp = mesh.tp if mesh is not None else 1
+    heads = local_count(cfg.num_heads, mesh, "num_heads") * cfg.head_dim
+    got = (params["layers"]["q_w"][0].shape[-1], params["embed"].shape[0])
+    if got != (heads, cfg.vocab_size // tp):
+        raise ValueError(f"decoder params with q width {got[0]} and {got[1]} vocab rows; a rank of a model axis "
+                         f"of {tp} takes {heads} and {cfg.vocab_size // tp}: cut them with parallel.shard_params")
 
 
-def ce_sums(logits: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def embed_tokens(params: Dict, input_ids: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The embedding rows of `input_ids` (from the vocab-split embed under a
+    model axis)."""
+    return vocab_embed(params["embed"], input_ids, mesh)
+
+
+def ce_sums(logits: torch.Tensor, labels: torch.Tensor, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The shifted CE's parts: logits[:, :-1] predict labels[:, 1:]; the
     NLL summed over the positions whose label is not IGNORE, and their
-    count."""
+    count. Under a model axis `logits` is this rank's vocab slice and the
+    log-softmax runs over the whole rows (parallel/tensor_parallel.py)."""
     shift_logits = logits[:, :-1, :]
     shift_labels = labels[:, 1:]
     valid = shift_labels != IGNORE_INDEX
     safe = torch.where(valid, shift_labels, torch.zeros_like(shift_labels)).long()
-    logprobs = torch.log_softmax(shift_logits, dim=-1)
-    token_ll = torch.gather(logprobs, -1, safe[..., None])[..., 0]
+    token_ll = vocab_token_logprob(shift_logits, safe, mesh)
     return -torch.where(valid, token_ll, torch.zeros_like(token_ll)).sum(), valid.sum()
 
 
-def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, mesh=None) -> torch.Tensor:
     """Shifted CE: mean over valid tokens, f32."""
-    loss_sum, n_valid = ce_sums(logits, labels)
+    loss_sum, n_valid = ce_sums(logits, labels, mesh)
     return loss_sum / n_valid.clamp(min=1)
 
 

@@ -10,6 +10,11 @@ The one prismatic-zoo LLM backbone that is not Llama-shaped (`phi-2+3b`):
   - biased q/k/v/dense/fc1/fc2 projections and a biased lm_head;
   - MLP = fc1 -> gelu (tanh approximation, f32) -> fc2, no gate.
 
+Under a model axis (`mesh`) the params are this rank's slices
+(parallel.shard_params, `phi_param_specs`): q/k/v and fc1 column-parallel
+with their biases, o and fc2 row-parallel with their biases added after the
+sum, lm_head's weight and bias split on the vocab.
+
 Attention runs `mha_chunked` ("chunked") or `mha` ("xla"): the flash
 kernels B1/B2 are written for head_dim 128 and Phi-2's is 80, so
 `attn_impl="flash"` raises, as in the JAX package.
@@ -34,6 +39,7 @@ from ..ops.attention import causal_bias, mha, mha_chunked, padding_bias
 from .config import PhiConfig
 from .convert import getter, stacked_layers
 from .llama import rope_cos_sin, rotate_half
+from ..parallel.tensor_parallel import copy_to_model, local_count, reduce_from_model
 from .param_tree import ParamTree
 from .vit import _normal, layer_norm
 
@@ -53,13 +59,15 @@ def _apply_partial_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
 
 
 def _phi_block(cfg: PhiConfig, x: torch.Tensor, layers: Dict, li: int,
-               bias: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """One Phi block on layer `li` of the stacked params."""
-    b, s, d = x.shape
-    h, hd = cfg.num_heads, cfg.head_dim
+               bias: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, mesh=None) -> torch.Tensor:
+    """One Phi block on layer `li` of the stacked params (this rank's heads
+    and fc1 slice under a model axis)."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    h = local_count(cfg.num_heads, mesh, "num_heads")
     p = {name: t[li] for name, t in layers.items()}
 
-    y = layer_norm(x, p["ln_scale"], p["ln_bias"], cfg.ln_eps)
+    y = copy_to_model(layer_norm(x, p["ln_scale"], p["ln_bias"], cfg.ln_eps), mesh)
 
     def heads(name):
         return (y @ p[f"{name}_w"] + p[f"{name}_b"]).reshape(b, s, h, hd).transpose(1, 2)
@@ -78,11 +86,11 @@ def _phi_block(cfg: PhiConfig, x: torch.Tensor, layers: Dict, li: int,
             f"PhiConfig.attn_impl='{cfg.attn_impl}' is not supported "
             "(use 'chunked' or 'xla')"
         )
-    attn = attn.transpose(1, 2).reshape(b, s, d) @ p["o_w"] + p["o_b"]
+    attn = reduce_from_model(attn.transpose(1, 2).reshape(b, s, h * hd) @ p["o_w"], mesh) + p["o_b"]
 
     # parallel residual: the MLP reads the same normed input as attention
     mlp = F.gelu((y @ p["fc1_w"] + p["fc1_b"]).float(), approximate="tanh").to(x.dtype)
-    mlp = mlp @ p["fc2_w"] + p["fc2_b"]
+    mlp = reduce_from_model(mlp @ p["fc2_w"], mesh) + p["fc2_b"]
     return x + attn + mlp
 
 
@@ -94,6 +102,7 @@ def phi_apply(
     positions: Optional[torch.Tensor] = None,
     remat: bool = False,
     logits_tail: Optional[int] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """inputs_embeds [B, S, D] -> f32 logits (the contract of llama_apply)."""
     b, s, _ = inputs_embeds.shape
@@ -109,13 +118,13 @@ def phi_apply(
     layers = params["layers"]
     for li in range(len(layers["q_w"])):  # a stack, or a list of per-layer leaves
         if remat:
-            x = checkpoint(_phi_block, cfg, x, layers, li, bias, cos, sin, use_reentrant=False)
+            x = checkpoint(_phi_block, cfg, x, layers, li, bias, cos, sin, mesh, use_reentrant=False)
         else:
-            x = _phi_block(cfg, x, layers, li, bias, cos, sin)
+            x = _phi_block(cfg, x, layers, li, bias, cos, sin, mesh)
     x = layer_norm(x, params["norm"]["scale"], params["norm"]["bias"], cfg.ln_eps)
     if logits_tail is not None:
         x = x[:, s - logits_tail :, :]
-    return (x @ params["lm_head"]["w"] + params["lm_head"]["b"]).float()
+    return (copy_to_model(x, mesh) @ params["lm_head"]["w"] + params["lm_head"]["b"]).float()
 
 
 class Phi(ParamTree):

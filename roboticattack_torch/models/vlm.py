@@ -8,6 +8,13 @@ the MLP projector, the attack's multimodal forward (`vla_forward`), and the
   - projector: fc1 -> GELU -> fc2 -> GELU -> fc3 (fused variant) or
     fc1 -> GELU -> fc2 (single tower), exact-erf GELU in fp32;
   - decoder: Llama-family by default, Phi-2 for the `phi-2+3b` zoo entry.
+
+Under a model axis (`mesh`, parallel.make_mesh(model > 1)) the vision
+towers stay whole and run without a collective on every rank; the
+projector is cut (fc1 column-, fc2 row-parallel, fc3 whole) when
+parallel.shard_params was given `shard_projector`, whole otherwise (read off
+fc1's width); the embedding lookup and the decoder are vocab- and
+head-parallel (models/llama.py).
 """
 
 from __future__ import annotations
@@ -18,8 +25,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.tensor_parallel import copy_to_model, reduce_from_model, split
 from .config import PhiConfig, VLAConfig, torch_dtype
-from .llama import Llama, cross_entropy_loss, embed_tokens, iter_llama_params, llama_apply
+from .llama import Llama, check_shard, cross_entropy_loss, embed_tokens, iter_llama_params, llama_apply
 from .param_tree import ParamTree, tree_from_leaves, tree_leaves
 from .phi import Phi, init_phi_params, phi_apply
 from .vit import ViT, _normal, init_vit_params, vit_features
@@ -35,14 +43,30 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x.float(), approximate="none").to(x.dtype)
 
 
-def projector_apply(params: Dict, features: torch.Tensor) -> torch.Tensor:
+def projector_apply(params: Dict, features: torch.Tensor, mesh=None) -> torch.Tensor:
     """Fused (3-layer) or single-tower (2-layer) MLP; the arity is read off
-    the params."""
-    x = _gelu(features @ params["fc1_w"] + params["fc1_b"])
-    x = x @ params["fc2_w"] + params["fc2_b"]
+    the params. With `mesh` (a model axis) fc1/fc2 are this rank's column
+    and row slices: fc2's partial products are summed before its bias."""
+    x = _gelu(copy_to_model(features, mesh) @ params["fc1_w"] + params["fc1_b"])
+    x = reduce_from_model(x @ params["fc2_w"], mesh) + params["fc2_b"]
     if "fc3_w" not in params:
         return x
     return _gelu(x) @ params["fc3_w"] + params["fc3_b"]
+
+
+def projector_mesh(params: Dict, cfg: VLAConfig, mesh):
+    """`mesh` when the projector holds this rank's fc1/fc2 slices (read off
+    fc1's width), None when it is whole; ValueError on any other width."""
+    if not split(mesh):
+        return None
+    full = 4 * cfg.vision_dim if cfg.use_fused_vision_backbone else cfg.llm.hidden_size
+    width = params["fc1_b"].shape[-1]
+    if width == full:
+        return None
+    if width * mesh.tp != full:
+        raise ValueError(f"projector fc1 of width {width}: neither whole ({full}) nor a slice of it over "
+                         f"{mesh.tp} model ranks")
+    return mesh
 
 
 def vision_features(params: Dict, cfg: VLAConfig, pixel_values: torch.Tensor,
@@ -71,6 +95,7 @@ def vla_forward(
     attention_mask: torch.Tensor,
     pixel_values: Optional[torch.Tensor],
     labels: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> VLAOutput:
     """The multimodal training/attack forward: the projected patch tokens
     are inserted after BOS (and always attended), the decoder computes the
@@ -78,33 +103,37 @@ def vla_forward(
     `pixel_values=None` runs the decoder over input_ids alone (full-row
     logits). With `cfg.remat` the vision encode is one outer checkpoint
     (only the pixels and the projected patches stay saved) over per-block
-    checkpoints, and every decoder block is checkpointed."""
+    checkpoints, and every decoder block is checkpointed. With `mesh` (a
+    model axis) `params` is this rank's shard and the logits its vocab
+    slice; the loss is the whole rows' CE on every rank."""
     apply_fn = decoder_apply_fn(cfg)
     llm = params["llm"]
+    check_shard(llm, cfg.llm, mesh)
     if pixel_values is None:
-        logits = apply_fn(llm, cfg.llm, embed_tokens(llm, input_ids),
-                             attention_mask=attention_mask, remat=cfg.remat)
-        loss = cross_entropy_loss(logits, labels) if labels is not None else None
+        logits = apply_fn(llm, cfg.llm, embed_tokens(llm, input_ids, mesh),
+                          attention_mask=attention_mask, remat=cfg.remat, mesh=mesh)
+        loss = cross_entropy_loss(logits, labels, mesh) if labels is not None else None
         return VLAOutput(loss=loss, logits=logits)
+    proj_mesh = projector_mesh(params["projector"], cfg, mesh)
 
     def encode(pixels):
         return projector_apply(params["projector"],
-                               vision_features(params["vision"], cfg, pixels, remat=cfg.remat))
+                               vision_features(params["vision"], cfg, pixels, remat=cfg.remat), proj_mesh)
 
     if cfg.remat:
         projected = checkpoint(encode, pixel_values, use_reentrant=False)
     else:
         projected = encode(pixel_values)
 
-    emb = embed_tokens(llm, input_ids)
+    emb = embed_tokens(llm, input_ids, mesh)
     mm_emb = torch.cat([emb[:, :1], projected.to(emb.dtype), emb[:, 1:]], dim=1)
     ones = torch.ones(projected.shape[:2], dtype=attention_mask.dtype, device=attention_mask.device)
     mm_mask = torch.cat([attention_mask[:, :1], ones, attention_mask[:, 1:]], dim=1)
     logits = apply_fn(llm, cfg.llm, mm_emb, attention_mask=mm_mask, remat=cfg.remat,
-                         logits_tail=input_ids.shape[1])
+                      logits_tail=input_ids.shape[1], mesh=mesh)
     # every valid label lives in the text region and labels[0] (BOS) is
     # IGNORE, so the shifted CE over the text logits is the extended row's
-    loss = cross_entropy_loss(logits, labels) if labels is not None else None
+    loss = cross_entropy_loss(logits, labels, mesh) if labels is not None else None
     return VLAOutput(loss=loss, logits=logits)
 
 

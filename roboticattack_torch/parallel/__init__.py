@@ -1,6 +1,8 @@
-"""Process groups and meshes (the JAX package's `parallel/`): the
-data-parallel attack's data axis, and the dp x tp grid of tensor- and
-data-parallel serving with the Megatron splits of the weights."""
+"""Process groups and meshes (the JAX package's `parallel/`): the (data,
+model) grid of the attack step (`make_mesh`) and of tensor- and
+data-parallel serving (`make_serving_mesh`), the Megatron splits of the
+weights (`sharding`) and the attack's model-axis collectives
+(`tensor_parallel`)."""
 
 from .distributed import DistInfo, backend_for, initialize_multihost
 from .mesh import (
@@ -24,6 +26,8 @@ from .sharding import (
     llama_param_specs,
     shard_decode_leaves,
     shard_decode_params,
+    shard_leaves,
     shard_params,
+    vla_leaf_spec,
     vla_param_specs,
 )

@@ -1,19 +1,26 @@
-"""The data axis of the data-parallel attack and the (data, model) grid of
-tensor- and data-parallel serving (the JAX package's `parallel/mesh.py`).
+"""The (data, model) grid of the attack step and of tensor- and
+data-parallel serving (the JAX package's `parallel/mesh.py`).
 
-JAX runs one program over a device mesh; here each rank is a process that
-holds its rows of the batch, the whole patch and all the weights:
-  batch sharded over 'data'     -> `shard_batch`: rank r keeps rows
-                                   [r B/W, (r+1) B/W);
+JAX runs one program over a device mesh; here each rank is a process. Both
+grids lay the ranks out as JAX reshapes its devices, (data, model): rank =
+d * tp + m. Replica d is the tp consecutive ranks d*tp .. d*tp+tp-1 (its
+model, or tensor-parallel, group); the ranks with the same m form a data
+group. On the data axis each rank holds its replica's rows of the batch and
+the whole patch:
+  batch sharded over 'data'     -> `shard_batch`: replica d keeps rows
+                                   [d B/dp, (d+1) B/dp);
   dist.broadcast(patch, src=0)  -> `replicate`;
-  the gradient all-reduce       -> `all_reduce_sum` of the patch gradient;
-  gathered per-example metrics  -> `all_gather_rows`.
+  the gradient all-reduce       -> `all_reduce_sum` of the patch gradient
+                                   over the data group;
+  gathered per-example metrics  -> `all_gather_rows` over the data group.
+On the model axis (`make_mesh(model > 1)`) each rank holds its slice of the
+decoder's weights (parallel/sharding.py `shard_params`) and the forward and
+backward call the Megatron collectives of parallel/tensor_parallel.py on
+the model group. GSPMD inserts both in JAX; here they are explicit.
 
-Serving (`make_serving_mesh`) lays the ranks out as JAX reshapes its
-devices, (data, model): rank = d * tp + m. Replica d is the tp consecutive
-ranks d*tp .. d*tp+tp-1 (its tensor-parallel group); the ranks with the
-same m form a data-parallel group. GSPMD inserts the serving collectives
-in JAX; here `ServingMesh` calls them explicitly.
+Serving (`make_serving_mesh`) builds the same grid (`_grid`); `ServingMesh`
+carries the decode's collectives. Both axes' model-group sums and maxima go
+through `model_all_reduce`.
 """
 
 from __future__ import annotations
@@ -25,42 +32,96 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .. import not_ported
 from . import distributed
 
 
 class DataMesh(NamedTuple):
-    """One data axis over every rank of the process group."""
+    """This rank's place in a (data, model) grid of the world's ranks:
+    `group` / `rank` / `size` are the data axis (the data group, the
+    replica index d and dp) that the data helpers below cut and reduce
+    over; `model_group` / `m` / `tp` the model axis (None, 0 and 1 without
+    one)."""
 
     group: Any
     rank: int
     size: int
     device: torch.device
+    model_group: Any = None
+    m: int = 0
+    tp: int = 1
+
+    @property
+    def d(self) -> int:
+        """This rank's replica (index on the data axis)."""
+        return self.rank
+
+    @property
+    def dp(self) -> int:
+        return self.size
 
 
 def make_mesh(data=None, model: int = 1, device: str = "cuda") -> DataMesh:
-    """The data axis over the initialized process group (a world of one,
-    formed on `device`, if there is none)."""
-    if model != 1:
-        raise not_ported("make_mesh(model > 1), the attack step under a model axis",
-                         "A6c: the attack under a model axis")
+    """The (data, model) grid over the initialized process group (a world
+    of one, formed on `device`, if there is none and model is 1). `data`
+    defaults to the world over `model`. With model > 1 every rank must call
+    it: it creates the model and data groups, and raises ValueError, before
+    joining anything, unless the world holds exactly data * model
+    processes."""
+    if model < 1 or (data is not None and data < 1):
+        raise ValueError(f"make_mesh(data={data}, model={model}): both must be >= 1")
+    if model == 1:
+        info = distributed.current() or distributed.initialize_multihost(device=device)
+        size = dist.get_world_size()
+        if data is not None and data != size:
+            raise ValueError(f"make_mesh(data={data}) over a process group of {size} ranks")
+        return DataMesh(group=dist.group.WORLD, rank=dist.get_rank(), size=size, device=info.device)
+    dp = _world() // model if data is None else data
+    return _grid(dp, model, device, f"make_mesh(data={data}, model={model}) needs a world of data x model processes")
+
+
+def _world() -> int:
+    return dist.get_world_size() if dist.is_initialized() else _env_world()
+
+
+def _grid(dp: int, tp: int, device: str, asked: str) -> DataMesh:
+    """The dp x tp grid of both make_mesh and make_serving_mesh, rank = d *
+    tp + m: joins the process group (`initialize_multihost`: torchrun's
+    environment, a card per local rank or gloo when ranks share one) and
+    creates every model and data group, on every rank in the same order
+    (dist.new_group). ValueError `asked`, before joining anything, unless
+    the world holds exactly dp * tp processes."""
+    have, need = _world(), dp * tp if dp else tp
+    if dp * tp != have:
+        raise ValueError(f"{asked}; this one has {have}. Launch it with `torchrun --nproc_per_node {need}`")
     info = distributed.current() or distributed.initialize_multihost(device=device)
-    size = dist.get_world_size()
-    if data is not None and data != size:
-        raise ValueError(f"make_mesh(data={data}) over a process group of {size} ranks")
-    return DataMesh(group=dist.group.WORLD, rank=dist.get_rank(), size=size, device=info.device)
+    rank = dist.get_rank()
+    model_groups = [dist.new_group([d * tp + m for m in range(tp)]) for d in range(dp)]
+    data_groups = [dist.new_group([d * tp + m for d in range(dp)]) for m in range(tp)]
+    return DataMesh(group=data_groups[rank % tp], rank=rank // tp, size=dp, device=info.device,
+                    model_group=model_groups[rank // tp], m=rank % tp, tp=tp)
+
+
+def model_all_reduce(t: torch.Tensor, mesh, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """`t` reduced by `op` over `mesh`'s model group in place (a DataMesh
+    or a ServingMesh; nothing to do without a model axis): the model-axis
+    sum and max of the attack step (parallel/tensor_parallel.py) and of
+    the serving decode."""
+    if mesh.tp > 1:
+        dist.all_reduce(t, op=op, group=mesh.model_group)
+    return t
 
 
 class ServingMesh(NamedTuple):
-    """A dp x tp serving grid over the process group: this rank's place in
-    it, its device, and the groups its collectives run over (None for a
-    group of one rank: such a collective is skipped)."""
+    """A dp x tp serving grid over the process group (make_mesh's, with
+    `rank` the world rank): this rank's place in it, its device, and the
+    groups its collectives run over (a model-axis collective is skipped at
+    tp 1)."""
 
     tp: int
     dp: int
     rank: int
     device: torch.device
-    tp_group: Any = None
+    model_group: Any = None
     dp_group: Any = None
 
     @property
@@ -79,16 +140,12 @@ class ServingMesh(NamedTuple):
 
     def tp_sum(self, t: torch.Tensor) -> torch.Tensor:
         """`t` summed over this replica's tensor-parallel ranks, in place."""
-        if self.tp > 1:
-            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.tp_group)
-        return t
+        return model_all_reduce(t, self)
 
     def tp_max(self, t: torch.Tensor) -> torch.Tensor:
         """`t`'s elementwise maximum over this replica's tensor-parallel
         ranks, in place."""
-        if self.tp > 1:
-            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.tp_group)
-        return t
+        return model_all_reduce(t, self, dist.ReduceOp.MAX)
 
     def tp_gather_last(self, t: torch.Tensor) -> torch.Tensor:
         """The tensor-parallel ranks' `t` concatenated on the last dim in
@@ -96,7 +153,7 @@ class ServingMesh(NamedTuple):
         if self.tp == 1:
             return t
         parts = [torch.empty_like(t) for _ in range(self.tp)]
-        dist.all_gather(parts, t.contiguous(), group=self.tp_group)
+        dist.all_gather(parts, t.contiguous(), group=self.model_group)
         return torch.cat(parts, dim=-1)
 
     def any_rank(self, flag: bool) -> bool:
@@ -116,29 +173,17 @@ def _env_world() -> int:
 
 def make_serving_mesh(tp: int = 1, dp: int = 1, device: str = "cuda") -> Optional[ServingMesh]:
     """The one dp x tp serving grid behind `--tp/--dp` on cli.serve and
-    cli.eval_libero: None for 1 x 1; otherwise joins the process group
-    (`initialize_multihost`: torchrun's environment, a card per local rank
-    or gloo when ranks share one) and builds the tensor- and data-parallel
-    groups. Every rank must call it. Raises ValueError, before joining
-    anything, unless the world holds exactly dp * tp processes."""
+    cli.eval_libero: None for 1 x 1; otherwise the grid of make_mesh
+    (`_grid`) as a ServingMesh. Every rank must call it. Raises ValueError,
+    before joining anything, unless the world holds exactly dp * tp
+    processes."""
     if tp < 1 or dp < 1:
         raise ValueError(f"--tp {tp} / --dp {dp}: both must be >= 1")
     if tp == 1 and dp == 1:
         return None
-    need = tp * dp
-    have = dist.get_world_size() if dist.is_initialized() else _env_world()
-    if have != need:
-        raise ValueError(
-            f"--dp {dp} x --tp {tp} needs a world of {need} processes; this one has {have}. "
-            f"Launch it with `torchrun --nproc_per_node {need} -m ...`"
-        )
-    info = distributed.current() or distributed.initialize_multihost(device=device)
-    rank = dist.get_rank()
-    # every rank creates every group, in the same order (dist.new_group)
-    tp_groups = [dist.new_group([d * tp + m for m in range(tp)]) if tp > 1 else None for d in range(dp)]
-    dp_groups = [dist.new_group([d * tp + m for d in range(dp)]) if dp > 1 else None for m in range(tp)]
-    return ServingMesh(tp=tp, dp=dp, rank=rank, device=info.device,
-                       tp_group=tp_groups[rank // tp], dp_group=dp_groups[rank % tp])
+    grid = _grid(dp, tp, device, f"--dp {dp} x --tp {tp} needs a world of {dp * tp} processes")
+    return ServingMesh(tp=tp, dp=dp, rank=grid.d * tp + grid.m, device=grid.device,
+                       model_group=grid.model_group, dp_group=grid.group)
 
 
 def batch_sharding(mesh) -> tuple:
@@ -172,9 +217,10 @@ def _tree_map(fn, tree):
 
 
 def row_range(rows: int, mesh: DataMesh) -> slice:
-    """This rank's rows of a global batch of `rows`."""
+    """This rank's rows of a global batch of `rows`: its replica's, the
+    same on every rank of a model group."""
     if rows % mesh.size:
-        raise ValueError(f"a batch of {rows} rows does not split evenly over {mesh.size} ranks")
+        raise ValueError(f"a batch of {rows} rows does not split evenly over {mesh.size} replicas")
     n = rows // mesh.size
     return slice(mesh.rank * n, (mesh.rank + 1) * n)
 
@@ -186,32 +232,33 @@ def shard_batch(batch, mesh: DataMesh):
 
 
 def replicate(tree, mesh: DataMesh):
-    """Every tensor of `tree` overwritten in place by rank 0's."""
+    """Every tensor of `tree` overwritten in place by rank 0's, on every
+    rank of the world (both axes of the grid)."""
 
     def bcast(t):
         if isinstance(t, torch.Tensor):
-            dist.broadcast(t, src=0, group=mesh.group)
+            dist.broadcast(t, src=0)
         return t
 
     return _tree_map(bcast, tree)
 
 
 def broadcast_object(obj, mesh: DataMesh):
-    """Rank 0's picklable `obj` on every rank."""
+    """Rank 0's picklable `obj` on every rank of the world."""
     box = [obj]
-    dist.broadcast_object_list(box, src=0, group=mesh.group)
+    dist.broadcast_object_list(box, src=0)
     return box[0]
 
 
 def all_reduce_sum(t: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
-    """`t` summed over the ranks, in place."""
+    """`t` summed over the data group, in place."""
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.group)
     return t
 
 
 def all_gather_rows(t: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
-    """Every rank's `t` concatenated on dim 0 in rank order: the global
-    batch's rows."""
+    """Every replica's `t` concatenated on dim 0 in replica order (over the
+    data group): the global batch's rows."""
     parts = [torch.empty_like(t) for _ in range(mesh.size)]
     dist.all_gather(parts, t.contiguous(), group=mesh.group)
     return torch.cat(parts)

@@ -4,8 +4,9 @@
 JAX annotates each leaf with a PartitionSpec and GSPMD places the shards and
 inserts the collectives. Here each rank is a process: the same tables say
 which dim of a leaf splits over the 'model' axis, and `shard_decode_params`
-/ `shard_params` cut this rank's slice of every leaf. The decode then calls
-its collectives itself (models/decode.py).
+/ `shard_params` (leaf by leaf: `shard_leaves`) cut this rank's slice of
+every leaf. The decode and the attack's forward then call their
+collectives themselves (models/decode.py; parallel/tensor_parallel.py).
 
 Storage layout (Llama block), `llama_param_specs`:
   q/k/v:   [L, D, H*hd]   split on heads (last dim)   - column parallel
@@ -14,7 +15,8 @@ Storage layout (Llama block), `llama_param_specs`:
   down:    [L, I, D]      split on I (dim 1)          - row parallel
   embed:   [V, D]         split on V
   lm_head: [D, V]         split on V
-ViTs and the projector stay replicated.
+ViTs and the projector stay replicated (with `shard_projector`: fc1
+column-, fc2 row-parallel, fc3 replicated).
 
 The cooked decode layout (`decode_param_specs`) is the serving flavour, see
 its docstring. `shard_decode_leaves` builds a rank's cooked, quantized and
@@ -24,7 +26,7 @@ one full stacked leaf of the model on its device while it loads.
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Mapping, Optional, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -98,39 +100,33 @@ def _decoder_layer_specs(layer_keys: set, model_axis: str) -> Dict:
     )
 
 
-def _replicate_like(tree):
-    if not isinstance(tree, Mapping):
-        return P()
-    return tree_from_leaves((p, P()) for p, _ in tree_leaves(tree))
-
-
-def _lm_head_spec(lm_head, m: str):
-    """[D, V] split on V; Phi's {w [D, V], b [V]} splits both on V."""
-    if isinstance(lm_head, dict):
-        return {k: P(None, m) if v.dim() == 2 else P(m) for k, v in lm_head.items()}
-    return P(None, m)
-
-
 def vla_param_specs(params: Dict, model_axis: str = "model", shard_projector: bool = False) -> Dict:
-    """The spec tree matching `params`' structure (storage layout)."""
-    specs = {
-        "vision": _replicate_like(params["vision"]),
-        "projector": _replicate_like(params["projector"]),
-        "llm": {
-            "embed": P(model_axis, None),
-            "layers": _decoder_layer_specs(set(params["llm"]["layers"]), model_axis),
-            "norm": _replicate_like(params["llm"]["norm"]),
-            "lm_head": _lm_head_spec(params["llm"]["lm_head"], model_axis),
-        },
-    }
-    if shard_projector:
-        specs["projector"] = {
-            "fc1_w": P(None, model_axis), "fc1_b": P(model_axis),
-            "fc2_w": P(model_axis, None), "fc2_b": P(),
-        }
-        if "fc3_w" in params["projector"]:  # the fused 3-layer variant
-            specs["projector"].update({"fc3_w": P(), "fc3_b": P()})
-    return specs
+    """The spec tree matching `params`' structure (storage layout), leaf by
+    leaf (`vla_leaf_spec`)."""
+    return tree_from_leaves((path, vla_leaf_spec(path, x, model_axis, shard_projector))
+                            for path, x in tree_leaves(params))
+
+
+def vla_leaf_spec(path: Tuple[str, ...], x: torch.Tensor, model_axis: str = "model",
+                  shard_projector: bool = False) -> P:
+    """The spec of one leaf of the storage-layout tree by its path (and, for
+    a Phi lm_head, its rank), without the whole tree: vision replicated; the
+    projector replicated, or with `shard_projector` fc1 column- and fc2
+    row-split (fc3 and fc2's bias replicated); embed and lm_head split on
+    the vocab; the decoder layers by llama_param_specs / phi_param_specs
+    (KeyError on a key neither has); norms replicated."""
+    m = model_axis
+    if path[0] == "projector" and shard_projector:
+        return {"fc1_w": P(None, m), "fc1_b": P(m), "fc2_w": P(m, None)}.get(path[1], P())
+    if path[0] != "llm":
+        return P()
+    if path[1] == "embed":
+        return P(m, None)
+    if path[1] == "layers":
+        return _decoder_layer_specs({path[2]}, m)[path[2]]
+    if path[1] == "lm_head":
+        return P(None, m) if x.dim() == 2 else P(m)
+    return P()
 
 
 def split_dim(spec: Tuple, model_axis: str = "model") -> Optional[int]:
@@ -150,13 +146,26 @@ def take_shard(x: torch.Tensor, dim: Optional[int], index: int, parts: int) -> t
     return x.narrow(dim, index * n, n)
 
 
+def shard_leaves(leaves: Iterable[Tuple[Tuple[str, ...], torch.Tensor]], mesh, model_axis: str = "model",
+                 shard_projector: bool = False):
+    """(path, this rank's slice on its device) of each storage-layout leaf
+    as it arrives: each leaf is cut and moved, and dropped before the next
+    is drawn or read, so a rank holds what it keeps and one whole leaf at
+    most (the attack's load of the 7B, PR 12's lesson for serving)."""
+    for path, x in leaves:
+        dim = split_dim(vla_leaf_spec(path, x, model_axis, shard_projector), model_axis)
+        out = take_shard(x, dim, mesh.m, mesh.tp).to(mesh.device)
+        # a cut leaf is copied out: a view would keep the whole leaf alive
+        out = out.clone(memory_format=torch.contiguous_format) if dim is not None and mesh.tp > 1 \
+            else out.contiguous()
+        del x  # the whole leaf goes before the next one is drawn or read
+        yield path, out
+
+
 def shard_params(params: Dict, mesh, model_axis: str = "model", shard_projector: bool = False) -> Dict:
     """This rank's slice of every leaf of a storage-layout tree, on its
-    device."""
-    specs = dict(tree_leaves(vla_param_specs(params, model_axis, shard_projector)))
-    return tree_from_leaves(
-        (p, take_shard(x, split_dim(specs[p], model_axis), mesh.m, mesh.tp).to(mesh.device).contiguous())
-        for p, x in tree_leaves(params))
+    device (`vla_param_specs` split over mesh.tp ranks, slice mesh.m)."""
+    return tree_from_leaves(shard_leaves(tree_leaves(params), mesh, model_axis, shard_projector))
 
 
 # ------------------------------------------------------------- decode (serving)

@@ -1,14 +1,15 @@
 """Tracing and wall-clock step timing (the JAX package's
 `utils/profiling.py`). `maybe_trace` records a block with torch.profiler
 into one Chrome trace per rank; StepTimer's caller ends each timed step with
-a device synchronize."""
+a device synchronize; `counting_collectives` records each collective a block
+makes, with its bytes and host seconds."""
 
 from __future__ import annotations
 
 import contextlib
 import os
 import time
-from typing import Iterator, Optional
+from typing import Any, Iterator, NamedTuple, Optional
 
 
 @contextlib.contextmanager
@@ -62,3 +63,53 @@ class StepTimer:
             "p90_s": s[min(n - 1, int(0.9 * n))],
             "min_s": s[0],
         }
+
+
+class Collective(NamedTuple):
+    """One collective call of this process."""
+
+    name: str  # all_reduce, all_gather or broadcast
+    op: Optional[str]  # an all_reduce's op (SUM, MAX, ...), else None
+    ranks: Any  # the group's ranks (a tuple), or "world" without a group
+    shape: tuple  # the tensor this rank gives
+    dtype: str
+    nbytes: int  # of that tensor
+    seconds: float  # host clock around the call; a CUDA tensor's card synchronized before and after
+
+
+@contextlib.contextmanager
+def counting_collectives(log: list) -> Iterator[list]:
+    """Append a Collective to `log` for every dist.all_reduce / all_gather
+    / broadcast this process makes while the block runs. The functions are
+    replaced on torch.distributed for the block, so every caller that looks
+    them up at call time is seen. A CUDA tensor's card is synchronized
+    before the call, so its seconds leave out the work queued before it."""
+    import torch
+    import torch.distributed as dist
+
+    saved = {n: getattr(dist, n) for n in ("all_reduce", "all_gather", "broadcast")}
+
+    def wrap(name):
+        def call(*a, **k):
+            t = a[1] if name == "all_gather" else a[0]
+            group = k.get("group")
+            ranks = tuple(dist.get_process_group_ranks(group)) if group is not None else "world"
+            op = str(k.get("op", dist.ReduceOp.SUM)).split(".")[-1] if name == "all_reduce" else None
+            if t.is_cuda:
+                torch.cuda.synchronize(t.device)
+            start = time.perf_counter()
+            out = saved[name](*a, **k)
+            if t.is_cuda:
+                torch.cuda.synchronize(t.device)
+            log.append(Collective(name, op, ranks, tuple(t.shape), str(t.dtype), t.numel() * t.element_size(),
+                                  time.perf_counter() - start))
+            return out
+        return call
+
+    for n in saved:
+        setattr(dist, n, wrap(n))
+    try:
+        yield log
+    finally:
+        for n, f in saved.items():
+            setattr(dist, n, f)

@@ -426,5 +426,6 @@ def test_mesh_helpers_refuse_what_they_cannot_do():
     assert tmesh.shard_batch({"a": np.arange(8), "b": None}, m)["a"].tolist() == [4, 5, 6, 7]
     with pytest.raises(ValueError, match="does not split evenly"):
         tmesh.shard_batch(np.arange(5), m)
-    with pytest.raises(NotImplementedError, match="A6c: the attack under a model axis"):
+    # the model axis is ported: a world of one is refused as not data x model
+    with pytest.raises(ValueError, match="needs a world of data x model processes"):
         tmesh.make_mesh(model=2)

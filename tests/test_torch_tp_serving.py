@@ -340,7 +340,7 @@ def test_decode_traffic(served, name, tp, dp):
         d = r // tp
         tp_ranks = tuple(range(d * tp, d * tp + tp))
         got = {}
-        for n, op, group, _, _ in log:
+        for n, op, group, *_ in log:
             got[(n, op, group)] = got.get((n, op, group), 0) + 1
         passes = rk["decode"][name]["result"].verify_passes
         assert got == _traffic(name, case, tp_ranks, passes=passes), (r, got)

@@ -9,8 +9,9 @@ import socket
 import time
 
 import torch
-import torch.distributed as dist
 import torch.multiprocessing as mp
+
+from roboticattack_torch.utils.profiling import counting_collectives
 
 # a hung collective fails its test here, long before the suite's clock
 SPAWN_TIMEOUT_S = 120
@@ -51,24 +52,9 @@ def _mesh(rank: int, world: int, init: str):
     return make_mesh(device="cpu")
 
 
-@contextlib.contextmanager
-def counting_collectives(log: list):
-    """Record (name, shape) of every all_reduce / all_gather / broadcast."""
-    saved = {n: getattr(dist, n) for n in ("all_reduce", "all_gather", "broadcast")}
-
-    def wrap(name):
-        def call(tensor, *a, **k):
-            log.append((name, tuple((a[0] if name == "all_gather" else tensor).shape)))
-            return saved[name](tensor, *a, **k)
-        return call
-
-    for n in saved:
-        setattr(dist, n, wrap(n))
-    try:
-        yield log
-    finally:
-        for n, f in saved.items():
-            setattr(dist, n, f)
+def _name_shape(log: list) -> list:
+    """(name, shape) of each recorded collective."""
+    return [(c.name, c.shape) for c in log]
 
 
 def _copy_state(state):
@@ -109,7 +95,7 @@ def steps_rank(rank: int, world: int, init: str, payload: str, out_dir: str) -> 
                 step = make_attack_step(spec, VLA_TINY, case["target"], case["maskidx"], mesh)
                 state, metrics = step(p["params"], _copy_state(p["state"]), batch, case["lr"], True,
                                       case["draws"])
-        out[name] = {"state": state, "metrics": metrics, "collectives": log}
+        out[name] = {"state": state, "metrics": metrics, "collectives": _name_shape(log)}
         if case["semantics"] == "gspmd":  # the val step on the global batch's first inner draws
             val = make_val_step(spec, VLA_TINY, case["target"], case["maskidx"], mesh)
             out[name]["val"] = val(p["params"], p["state"].patch, batch, val_draws(case["draws"]))
@@ -216,6 +202,7 @@ def train_rank(rank: int, world: int, init: str, payload: str, out_dir: str) -> 
                 losses.append(trainer.run_training(iter([batch]), 1))
         kept = {path: tuple(t.shape) for path, t in tree_leaves(trainer.params)}
         full = {path: t.clone() for path, t in tree_leaves(trainer.full_params())}
-        out[strategy] = {"losses": losses, "collectives": logs, "init": init_log, "kept": kept, "params": full}
+        out[strategy] = {"losses": losses, "collectives": [_name_shape(x) for x in logs], "init": _name_shape(init_log),
+                         "kept": kept, "params": full}
     torch.save(out, os.path.join(out_dir, f"train_rank{rank}.pt"))
     distributed.shutdown()

@@ -16,34 +16,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from torch_ddp_workers import _master_port
+from roboticattack_torch.utils.profiling import counting_collectives
+from torch_ddp_workers import _copy_state, _master_port
 
 STATS = {"k": {"action": {"q01": [-0.2] * 7, "q99": [0.4] * 7, "mask": [True] * 6 + [False]}}}
-
-
-@contextlib.contextmanager
-def counting_collectives(log: list):
-    """Record (name, op, the group's ranks, shape, dtype) of every
-    all_reduce / all_gather / broadcast this process makes."""
-    saved = {n: getattr(dist, n) for n in ("all_reduce", "all_gather", "broadcast")}
-
-    def wrap(name):
-        def call(*a, **k):
-            t = a[1] if name == "all_gather" else a[0]
-            group = k.get("group")
-            ranks = tuple(dist.get_process_group_ranks(group)) if group is not None else "world"
-            op = str(k.get("op", dist.ReduceOp.SUM)).split(".")[-1] if name == "all_reduce" else None
-            log.append((name, op, ranks, tuple(t.shape), str(t.dtype)))
-            return saved[name](*a, **k)
-        return call
-
-    for n in saved:
-        setattr(dist, n, wrap(n))
-    try:
-        yield log
-    finally:
-        for n, f in saved.items():
-            setattr(dist, n, f)
 
 
 def quantized_tree(params, quant, group_size):
@@ -199,3 +175,54 @@ def serving_rank(rank: int, world: int, tp: int, dp: int, init: str, payload: st
                                     p["episodes"], p["real_steps"])
     sys.stdout.flush()
     torch.save(out, os.path.join(out_dir, f"tp{tp}_dp{dp}_rank{rank}.pt"))
+
+
+def tp_attack_case(mesh, p: dict, case: dict) -> dict:
+    """One case of the attack under a model axis on this rank: its shard
+    cut from the payload's tree, its replica's rows, then the attack step
+    (and the val and clean-filter steps) or, for `forward`, vla_forward's
+    loss and pixel gradient; with the collectives of the step or forward."""
+    from roboticattack_torch.attacks import engine
+    from roboticattack_torch.models.vlm import vla_forward
+    from roboticattack_torch.parallel import shard_batch, shard_params
+
+    cfg = case["cfg"]
+    local = shard_params(p[case["params"]], mesh, shard_projector=case["shard_projector"])
+    out, log = {}, []
+    if case["kind"] == "forward":
+        ids, mask, pixels, labels = shard_batch(case["inputs"], mesh)
+        px = pixels.clone().requires_grad_()
+        with counting_collectives(log):
+            fwd = vla_forward(local, cfg, ids, mask, px, labels, mesh=mesh)
+            fwd.loss.backward()
+        return {"loss": fwd.loss.detach(), "logits": fwd.logits.detach(), "grad": px.grad, "collectives": log}
+    spec = engine.AttackSpec(**case["spec"])
+    batch = engine.batch_to_device(shard_batch(p["batch"], mesh), "cpu")
+    step = engine.make_attack_step(spec, cfg, case["target"], case["maskidx"], mesh)
+    with counting_collectives(log):
+        state, metrics = step(local, _copy_state(p["state"]), batch, case["lr"], True, case["draws"])
+    out.update(state=state, metrics=metrics, collectives=log)
+    if case["val_draws"] is not None:
+        val = engine.make_val_step(spec, cfg, case["target"], case["maskidx"], mesh)
+        out["val"] = val(local, p["state"].patch, batch, case["val_draws"])
+        out["clean"] = engine.make_clean_filter_step(cfg, mesh)(local, batch)
+    return out
+
+
+def tp_attack_rank(rank: int, world: int, tp: int, dp: int, init: str, payload: str, out_dir: str) -> None:
+    """The payload's cases of this layout (dp x tp) on this rank of a
+    make_mesh(data=dp, model=tp) grid, saved with the rank's place in it."""
+    torch.set_num_threads(1)
+    from roboticattack_torch.parallel import distributed, initialize_multihost, make_mesh
+
+    initialize_multihost(init, num_processes=world, process_id=rank, device="cpu")
+    mesh = make_mesh(data=dp, model=tp, device="cpu")
+    p = torch.load(payload, weights_only=False)
+    out = {"place": {"d": mesh.d, "m": mesh.m, "dp": mesh.dp, "tp": mesh.tp,
+                     "model_group": tuple(dist.get_process_group_ranks(mesh.model_group)),
+                     "data_group": tuple(dist.get_process_group_ranks(mesh.group))}}
+    for name, case in p["cases"].items():
+        if tuple(case["layout"]) == (tp, dp):
+            out[name] = tp_attack_case(mesh, p, case)
+    torch.save(out, os.path.join(out_dir, f"tp_attack_tp{tp}_dp{dp}_rank{rank}.pt"))
+    distributed.shutdown()
