@@ -10,9 +10,11 @@ Phases, each of which fails the run (non-zero exit, no result line) on error:
   3. kernels — each kernel against its plain PyTorch version on the card at
                the OpenVLA-7B projection shapes, with times, the byte bound
                and a library yardstick, at m = 1, 2 and 8 rows (the sequential
-               tail at bs 1, 2 and 8) and, for B4, m = 56 (the Jacobi pass at bs 8, y
-               [8, 7, in]); both modes also with groups of 32 and 64
-               channels, errors only (grouped mode there runs the FMA body);
+               tail at bs 1, 2 and 8) and, for B4, m = 56 (the Jacobi pass at
+               bs 8, y [8, 7, in]); B4 with groups of 128, 64 and 32 channels
+               (all timed), and at m = 57 and 64 (errors only); B5 also with
+               groups of 32 and 64, errors only; every check bit-equal across
+               two launches;
   4. slice   — the int4 serving path end to end: random seeded OpenVLA-7B
                weights -> int4 -> VLAPolicy -> DynamicBatcher ->
                ActionServer on 127.0.0.1, answering concurrent HTTP requests;
@@ -24,11 +26,11 @@ Phases, each of which fails the run (non-zero exit, no result line) on error:
                visual_tokens (all patches bit-equal to no pruning; 128),
                Jacobi drafts through a drafts-enabled ActionServer (round 2
                sends round 1's tokens back: equal tokens, 1.0 verify pass a
-               batch on /healthz, B4 launches = passes x 32 x 7, all mma;
+               batch on /healthz, B4 launches = passes x 32 x 7;
                zero-draft tokens against the sequential kernel tail); then a
                w8a8 7B policy beside weight-only int8 on its weights; for
-               each, prefill/tail wall ms, device busy ms, B4 launches by
-               body and peak memory;
+               each, prefill/tail wall ms, device busy ms, B4 launches and
+               peak memory;
   5. flash   — the attention kernels B1/B2 against their plain versions on
                the card (the attack step's shape with a dummy batch's causal
                + padding bias, B=1, the verify smoke's bs 2 with its batch's
@@ -58,7 +60,7 @@ Phases, each of which fails the run (non-zero exit, no result line) on error:
                card; `load_policy(dir, quantize="int4")` timed to the first
                action; its bs 8 decode against an int4 policy built in
                memory from the drawn weights (prefill logits bit-equal, the
-               tokens equal, 1344 B4 launches all on the mma body); 8 HTTP
+               tokens equal, 1344 B4 launches); 8 HTTP
                clients of an ActionServer over it; every converted leaf
                torch.equal to the weights drawn again; `cli.attack
                --checkpoint dir` against the seeded run (TRAIN_loss
@@ -100,7 +102,7 @@ Phases, each of which fails the run (non-zero exit, no result line) on error:
                `cli.eval_libero --tp 4` over the eval phase's replayed
                episodes; 2-4 processes share the one card over gloo (no
                scaling measure). Per rank: exit 0, 1344 B4 launches a decode
-               on the body its shapes take (mma at groups of 128, fma at 64),
+               (groups of 128 at tp 2, of 64 at tp 4),
                the load peak below 12 GiB (and what the rank keeps of it),
                decode wall ms; the tokens against a single-process policy on
                the same checkpoint and group size by the margin rule of the
@@ -206,13 +208,16 @@ SEED = 0
 VT_KEEP = 128  # visual_tokens of the pruned decode: half the 7B's 256 patches
 JACOBI_M = 56  # B4's rows in the Jacobi pass at bs 8: 8 rows x 7 draft positions
 M_ROWS = (1, 2, 8, JACOBI_M)
+M_CHECK = (JACOBI_M + 1, 64)  # B4 held without timing: a ragged last n-tile, 8 full n-tiles
 GROUP = 128  # the 7B's int4 group size (models/quant.py int4_group_size_for)
+# B4's groups in phase_kernels: the 7B's, a tp=4 rank's, and int4:32
+GROUPS = (GROUP, 64, 32)
 # (label, out, in) of the decode tail's projections; launches per layer
 PROJ = [("q/k/v/o_w", 4096, 4096, 4), ("gate/up_w", 11008, 4096, 2), ("down_w", 4096, 11008, 1)]
-# mode -> (name, the TPU kernel it replaces, the body the 7B's shapes take)
+# mode -> (name, the TPU kernel it replaces)
 KERNELS = {
-    "grouped": ("q4_matmul_grouped_mma", "roboticattack_tpu/ops/q4_matmul.py:70", "mma"),
-    "dense": ("q4_matmul_dense_mma", "roboticattack_tpu/ops/q4_matmul.py:96", "mma"),
+    "grouped": ("q4_matmul_grouped_mma", "roboticattack_tpu/ops/q4_matmul.py:70"),
+    "dense": ("q4_matmul_dense_mma", "roboticattack_tpu/ops/q4_matmul.py:96"),
 }
 SOURCE = "roboticattack_torch/csrc/q4_matmul.cu"
 FLASH_KERNELS = {
@@ -319,113 +324,126 @@ def dequant_bf16(w, scale):
     return (w8 * scale[..., None]).to(torch.bfloat16).reshape(out_dim, 2 * in_half)
 
 
-def launch_body(label: str, want: str, fn):
-    """fn() through the q4_matmul wrapper; raises unless it launched the body
-    `want` ("mma" or "fma")."""
-    before = dict(q4_matmul.launches_by_body)
+def launch_counted(label: str, mode: str, fn):
+    """fn() through the q4_matmul wrapper; raises unless it launched the
+    kernel once, in `mode`, and nothing else."""
+    before = dict(q4_matmul.launches)
     out = fn()
     torch.cuda.synchronize()
-    body = [b for b, n in q4_matmul.launches_by_body.items() if n != before[b]]
-    if body != [want]:
-        raise AssertionError(f"{label} ran the body {body}, not {want!r}")
+    if q4_matmul.launches != dict(before, **{mode: before[mode] + 1}):
+        raise AssertionError(f"{label}: launches {before} -> {q4_matmul.launches}, not one {mode} launch")
     return out
 
 
+def check_q4(label: str, mode: str, y, w, sc) -> float:
+    """One launch of B4/B5 against the plain version (check_close), then a
+    second launch on the same inputs, bit-equal to the first (the warps'
+    partials are summed in a fixed order). Returns the largest error."""
+    got = launch_counted(label, mode, lambda: q4_matmul(y, w, sc, mode=mode))
+    err = check_close(label, got, q4_matmul_plain(y, w, sc, mode, torch.bfloat16))
+    again = q4_matmul(y, w, sc, mode=mode)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int16), again.view(torch.int16)):
+        raise AssertionError(f"{label}: two launches on the same inputs differ")
+    return err
+
+
+def q4_bound(out_dim: int, in_dim: int, gs: int, m: int, bw: float):
+    """(byte_ms, op_ms) of one launch: the packed weights, the scales and the
+    activations read once and the output written once at the card's rate,
+    or the products at the bf16 tensor-core peak."""
+    nbytes = out_dim * in_dim // 2 + out_dim * (in_dim // gs) * 4 + m * in_dim * 2 + m * out_dim * 2
+    return nbytes / bw * 1e3, 2 * m * out_dim * in_dim / PEAK_BF16_FLOPS * 1e3
+
+
 def phase_kernels(bw: float):
-    """Every kernel against its plain version at the 7B projection shapes;
-    timing cycles through enough distinct weight copies to exceed the 50 MB
-    L2, as the decode tail (32 layers of weights) finds them cold. Then both
-    modes at 4096x4096, m=8, with groups of 32 and 64 channels, errors only:
-    dense mode on the mma body (4 and 2 scales a row a k-block), grouped mode
-    on the FMA body. Returns the timed rows and, by mode, the largest error
-    of those checks."""
+    """Every kernel against its plain version at the 7B projection shapes,
+    timed; timing cycles through enough distinct weight copies to exceed the
+    50 MB L2, as the decode tail (32 layers of weights) finds them cold.
+    Grouped mode (B4) with groups of 128 (the 7B's), 64 (tp 4's) and 32 at m
+    = 1, 2, 8 and 56, and at m = 57 and 64 errors only; dense mode (B5) with
+    groups of 128 at m = 1, 2, 8, and with groups of 32 and 64 at 4096x4096,
+    m=8, errors only. Each check is also bit-equal across two launches.
+    Returns the timed rows and the untimed checks."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    rows = []
+    rows, checked = [], []
     for label, out_dim, in_dim, per_layer in PROJ:
-        g = in_dim // GROUP
-        wbytes = out_dim * in_dim // 2
-        nbuf = max(2, math.ceil(200e6 / wbytes))
+        nbuf = max(2, math.ceil(200e6 / (out_dim * in_dim // 2)))
         ws = [torch.randint(-128, 128, (out_dim, in_dim // 2), generator=gen, device="cuda",
                             dtype=torch.int32).to(torch.int8) for _ in range(nbuf)]
-        scs = [(torch.rand((out_dim, g), generator=gen, device="cuda") + 0.5) * 2e-3
-               for _ in range(nbuf)]
-        dense_w = [dequant_bf16(w, s) for w, s in zip(ws[:4], scs[:4])]
-        # m = 1, 2 and 8: the sequential tail's s=1 steps at bs 1 (eval), 2
-        # (the verify quant leg) and 8 (serving, lockstep eval); m = 56:
-        # the Jacobi pass at bs 8, y [8, 7, in] (seven row chunks of 8)
-        for m in M_ROWS:
-            y = torch.randn((m // 7, 7, in_dim) if m == JACOBI_M else (m, 1, in_dim),
-                            generator=gen, device="cuda").to(torch.bfloat16)
-            nbytes = wbytes + out_dim * g * 4 + m * in_dim * 2 + m * out_dim * 2
-            byte_ms = nbytes / bw * 1e3
-            op_ms = 2 * m * out_dim * in_dim / PEAK_BF16_FLOPS * 1e3
-            bound_ms = max(byte_ms, op_ms)
-            library_ms = device_ms(lambda i: torch.matmul(y, dense_w[i % len(dense_w)].T))
-            for mode in ("grouped", "dense") if m != JACOBI_M else ("grouped",):
-                body = KERNELS[mode][2]
-                got = launch_body(f"{mode} {label} m={m}", body,
-                                  lambda: q4_matmul(y, ws[0], scs[0], mode=mode))
-                want = q4_matmul_plain(y, ws[0], scs[0], mode, torch.bfloat16)
-                err = (got.float() - want.float()).abs().max().item()
-                ref = want.float().abs().max().item()
-                # both sum in f32 in different orders and round to bf16: at
-                # most a couple of bf16 ulps (2^-8 relative) of the largest output
-                tol = 2.0 ** -7 * ref
-                if not (err <= tol and torch.isfinite(got).all()):
-                    raise AssertionError(
-                        f"{mode} {label} m={m}: max_abs_err {err} > tol {tol}")
+        for gs in GROUPS:
+            g = in_dim // gs
+            scs = [(torch.rand((out_dim, g), generator=gen, device="cuda") + 0.5) * 2e-3
+                   for _ in range(nbuf)]
+            dense_w = [dequant_bf16(w, s) for w, s in zip(ws[:4], scs[:4])]
+            # m = 1, 2 and 8: the sequential tail's s=1 steps at bs 1 (eval), 2
+            # (the verify quant leg) and 8 (serving, lockstep eval); m = 56:
+            # the Jacobi pass at bs 8, y [8, 7, in] (seven n-tiles of 8)
+            for m in M_ROWS:
+                y = torch.randn((m // 7, 7, in_dim) if m == JACOBI_M else (m, 1, in_dim),
+                                generator=gen, device="cuda").to(torch.bfloat16)
+                byte_ms, op_ms = q4_bound(out_dim, in_dim, gs, m, bw)
+                bound_ms = max(byte_ms, op_ms)
+                library_ms = device_ms(lambda i: torch.matmul(y, dense_w[i % len(dense_w)].T))
+                for mode in ("grouped", "dense") if gs == GROUP and m != JACOBI_M else ("grouped",):
+                    name = f"{mode} {label} m={m} groups of {gs}"
+                    err = check_q4(name, mode, y, ws[0], scs[0])
 
-                def kern(i):
-                    return q4_matmul(y, ws[i % nbuf], scs[i % nbuf], mode=mode)
+                    def kern(i):
+                        return q4_matmul(y, ws[i % nbuf], scs[i % nbuf], mode=mode)
 
-                ms = device_ms(kern)
-                host_ms = eager_ms(kern, reps=100)
-                plain_ms = device_ms(
-                    lambda i: q4_matmul_plain(y, ws[i % nbuf], scs[i % nbuf], mode, torch.bfloat16),
-                    calls=4, replays=3)
-                row = dict(mode=mode, body=body, shape=label, out=out_dim, inp=in_dim, m=m,
-                           per_layer=per_layer, max_abs_err=err, tol=tol, ms=ms, host_ms=host_ms,
-                           plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                           byte_ms=byte_ms, op_ms=op_ms,
-                           bound_by="bytes" if byte_ms >= op_ms else "operations",
-                           gbps=nbytes / (ms * 1e-3) / 1e9)
-                rows.append(row)
-                log(f"kernel {KERNELS[mode][0]} ({body} body) {label} [{out_dim}x{in_dim}] m={m}: "
-                    f"max_abs_err={err:.3g} (tol {tol:.3g}) kernel_ms={ms:.5f} "
-                    f"eager_back_to_back_ms={host_ms:.5f} "
-                    f"plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
-                    f"(torch.matmul on a pre-dequantized bf16 weight: reads 4x the bytes) "
-                    f"bound_ms={bound_ms:.5f} ({row['bound_by']}) "
-                    f"achieved={row['gbps']:.0f} GB/s")
-        del ws, scs, dense_w
+                    ms = device_ms(kern)
+                    host_ms = eager_ms(kern, reps=100)
+                    plain_ms = device_ms(
+                        lambda i: q4_matmul_plain(y, ws[i % nbuf], scs[i % nbuf], mode, torch.bfloat16),
+                        calls=4, replays=3)
+                    gbps = (byte_ms * 1e-3 * bw) / (ms * 1e-3) / 1e9
+                    row = dict(mode=mode, group=gs, shape=label, out=out_dim, inp=in_dim, m=m,
+                               per_layer=per_layer, max_abs_err=err, ms=ms, host_ms=host_ms,
+                               plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                               byte_ms=byte_ms, op_ms=op_ms,
+                               bound_by="bytes" if byte_ms >= op_ms else "operations", gbps=gbps)
+                    rows.append(row)
+                    log(f"kernel {KERNELS[mode][0]} {label} [{out_dim}x{in_dim}] m={m}, groups of {gs}: "
+                        f"max_abs_err={err:.3g} (tol 2^-7 x max|plain|; two launches bit-equal) "
+                        f"kernel_ms={ms:.5f} eager_back_to_back_ms={host_ms:.5f} "
+                        f"plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
+                        f"(torch.matmul on a pre-dequantized bf16 weight: reads 4x the bytes) "
+                        f"bound_ms={bound_ms:.5f} ({row['bound_by']}) achieved={gbps:.0f} GB/s")
+            # a ragged last n-tile and 8 full ones: errors only
+            for m in M_CHECK:
+                y = torch.randn((m, 1, in_dim), generator=gen, device="cuda").to(torch.bfloat16)
+                name = f"grouped {label} m={m} groups of {gs}"
+                err = check_q4(name, "grouped", y, ws[0], scs[0])
+                checked.append(dict(mode="grouped", group=gs, shape=label, m=m, max_abs_err=err))
+                log(f"kernel {KERNELS['grouped'][0]} {name}: max_abs_err={err:.3g} (tol 2^-7 x max|plain|; "
+                    f"two launches bit-equal)")
+            del scs, dense_w
+        del ws
         torch.cuda.empty_cache()
-    # groups of 32 and 64: dense mode on the mma body, grouped mode on the
-    # FMA body (a grouped partial must belong to one group)
-    group_err = {mode: 0.0 for mode in KERNELS}
+    # dense mode with groups of 32 and 64: 4 and 2 scales a row a k-block
     for gs in (32, 64):
         w = torch.randint(-128, 128, (4096, 2048), generator=gen, device="cuda",
                           dtype=torch.int32).to(torch.int8)
         sc = (torch.rand((4096, 4096 // gs), generator=gen, device="cuda") + 0.5) * 2e-3
         y = torch.randn((8, 1, 4096), generator=gen, device="cuda").to(torch.bfloat16)
-        for mode in KERNELS:
-            body = "fma" if mode == "grouped" else KERNELS[mode][2]
-            label = f"{mode} [4096x4096] m=8, groups of {gs}"
-            got = launch_body(label, body, lambda: q4_matmul(y, w, sc, mode=mode))
-            err = check_close(label, got, q4_matmul_plain(y, w, sc, mode, torch.bfloat16))
-            group_err[mode] = max(group_err[mode], err)
-            log(f"kernel {KERNELS[mode][0] if body == 'mma' else 'q4_matmul_grouped_fma'} ({body} body) "
-                f"{label}: max_abs_err={err:.3g} (tol 2^-7 x max|plain|)")
-    return rows, group_err
+        name = f"dense [4096x4096] m=8 groups of {gs}"
+        err = check_q4(name, "dense", y, w, sc)
+        checked.append(dict(mode="dense", group=gs, shape="q/k/v/o_w", m=8, max_abs_err=err))
+        log(f"kernel {KERNELS['dense'][0]} {name}: max_abs_err={err:.3g} (tol 2^-7 x max|plain|; "
+            f"two launches bit-equal)")
+    return rows, checked
 
 
-# tp -> (the int4 group size at that tp, the body it takes, B4's per-rank
-# shapes (label, out, in, launches a layer) of the 7B's Megatron split:
-# q/k/v/gate/up split out, o/down split the contraction)
+# tp -> (the int4 group size at that tp, B4's per-rank shapes (label, out,
+# in, launches a layer) of the 7B's Megatron split: q/k/v/gate/up split out,
+# o/down split the contraction). At tp 4, 11008 / 4 = 2752 is not a multiple
+# of 128: groups of 64 (models/quant.py int4_group_size_for).
 TP_SHAPES = {
-    2: (128, "mma", [("q/k/v_w", 2048, 4096, 3), ("o_w", 4096, 2048, 1), ("gate/up_w", 5504, 4096, 2),
-                     ("down_w", 4096, 5504, 1)]),
-    4: (64, "fma", [("q/k/v_w", 1024, 4096, 3), ("o_w", 4096, 1024, 1), ("gate/up_w", 2752, 4096, 2),
-                    ("down_w", 4096, 2752, 1)]),
+    2: (128, [("q/k/v_w", 2048, 4096, 3), ("o_w", 4096, 2048, 1), ("gate/up_w", 5504, 4096, 2),
+              ("down_w", 4096, 5504, 1)]),
+    4: (64, [("q/k/v_w", 1024, 4096, 3), ("o_w", 4096, 1024, 1), ("gate/up_w", 2752, 4096, 2),
+             ("down_w", 4096, 2752, 1)]),
 }
 
 
@@ -433,20 +451,19 @@ def phase_kernels_tp(bw: float, rows_by_tp: dict) -> dict:
     """B4 (grouped) against its plain version at each rank's shapes of the
     7B under tensor parallelism (TP_SHAPES), at every row count m that the
     tp runs gave those shapes (`rows_by_tp`: tp -> the m a rank's decodes
-    ran), timed as phase_kernels times, with the byte bound and the library
-    yardstick: per tp and m, one layer's 7 launches summed; per tp, the
-    largest error."""
+    ran), each check bit-equal across two launches, timed as phase_kernels
+    times, with the byte bound and the library yardstick: per tp and m, one
+    layer's 7 launches summed; per tp, the largest error."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     out = {}
     for tp, ms in sorted(rows_by_tp.items()):
-        gs, body, shapes = TP_SHAPES[tp]
+        gs, shapes = TP_SHAPES[tp]
         by_m = {m: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "byte_ms": 0.0, "op_ms": 0.0, "library_ms": 0.0}
                 for m in ms}
         err_max = 0.0
         for label, out_dim, in_dim, per_layer in shapes:
             g = in_dim // gs
-            wbytes = out_dim * in_dim // 2
-            nbuf = max(2, math.ceil(200e6 / wbytes))
+            nbuf = max(2, math.ceil(200e6 / (out_dim * in_dim // 2)))
             ws = [torch.randint(-128, 128, (out_dim, in_dim // 2), generator=gen, device="cuda",
                                 dtype=torch.int32).to(torch.int8) for _ in range(nbuf)]
             scs = [(torch.rand((out_dim, g), generator=gen, device="cuda") + 0.5) * 2e-3 for _ in range(nbuf)]
@@ -454,11 +471,8 @@ def phase_kernels_tp(bw: float, rows_by_tp: dict) -> dict:
             for m in ms:
                 y = torch.randn((m, 1, in_dim), generator=gen, device="cuda").to(torch.bfloat16)
                 name = f"tp {tp} {label} [{out_dim}x{in_dim}] m={m}, groups of {gs}"
-                got = launch_body(name, body, lambda: q4_matmul(y, ws[0], scs[0]))
-                err = check_close(name, got, q4_matmul_plain(y, ws[0], scs[0], "grouped", torch.bfloat16))
-                nbytes = wbytes + out_dim * g * 4 + m * in_dim * 2 + m * out_dim * 2
-                byte_ms = nbytes / bw * 1e3
-                op_ms = 2 * m * out_dim * in_dim / PEAK_BF16_FLOPS * 1e3
+                err = check_q4(name, "grouped", y, ws[0], scs[0])
+                byte_ms, op_ms = q4_bound(out_dim, in_dim, gs, m, bw)
                 ms_k = device_ms(lambda i: q4_matmul(y, ws[i % nbuf], scs[i % nbuf]))
                 plain_ms = device_ms(lambda i: q4_matmul_plain(y, ws[i % nbuf], scs[i % nbuf], "grouped",
                                                                torch.bfloat16), calls=4, replays=3)
@@ -467,17 +481,17 @@ def phase_kernels_tp(bw: float, rows_by_tp: dict) -> dict:
                              ("byte_ms", byte_ms), ("op_ms", op_ms), ("library_ms", library_ms)):
                     by_m[m][k] += v * per_layer
                 err_max = max(err_max, err)
-                log(f"kernel q4_matmul_grouped ({body} body) {name}: max_abs_err={err:.3g} (tol 2^-7 x max|plain|) "
-                    f"kernel_ms={ms_k:.5f} plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
-                    f"bound_ms={max(byte_ms, op_ms):.5f} achieved={nbytes / (ms_k * 1e-3) / 1e9:.0f} GB/s")
+                log(f"kernel {KERNELS['grouped'][0]} {name}: max_abs_err={err:.3g} (tol 2^-7 x max|plain|; two "
+                    f"launches bit-equal) kernel_ms={ms_k:.5f} plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
+                    f"bound_ms={max(byte_ms, op_ms):.5f} achieved={byte_ms * 1e-3 * bw / (ms_k * 1e-3) / 1e9:.0f} GB/s")
             del ws, scs, dense_w
             torch.cuda.empty_cache()
         for m, tot in by_m.items():
             tot["bound_by"] = "bytes" if tot["byte_ms"] >= tot["op_ms"] else "operations"
-            log(f"kernel q4_matmul_grouped at a tp={tp} rank's shapes ({body} body, groups of {gs}), one layer's 7 "
+            log(f"kernel {KERNELS['grouped'][0]} at a tp={tp} rank's shapes (groups of {gs}), one layer's 7 "
                 f"launches at m={m}: kernel {tot['ms']:.5f} ms, plain {tot['plain_ms']:.5f} ms, library "
                 f"{tot['library_ms']:.5f} ms, bound {tot['bound_ms']:.5f} ms ({tot['bound_by']})")
-        out[tp] = dict(body=body, group=gs, max_abs_err=err_max, by_m=by_m)
+        out[tp] = dict(group=gs, max_abs_err=err_max, by_m=by_m)
     return out
 
 
@@ -697,20 +711,16 @@ def phase_slice(card: str) -> dict:
         finally:
             serve_s = time.perf_counter() - t
             launches = dict(q4_matmul.launches)  # read right after the main path
-            by_body = dict(q4_matmul.launches_by_body)
         decodes = server.batcher.stats["batches"] - batches_before
         bucket_counts = server.batcher.bucket_counts()
     finally:
         server.shutdown()
     log(f"slice: {N_REQUESTS} concurrent POST /act answered 200 with 7 finite actions each "
         f"in {serve_s:.3f} s over {decodes} decode call(s) (buckets {bucket_counts})")
-    log(f"slice: q4_matmul launches in the served run {launches}, by body {by_body}; expected "
-        f"{per_decode} per decode call ({steps} steps x {layers} layers x 7) x {decodes}, "
-        f"all through the mma body")
-    if launches["grouped"] != per_decode * decodes or decodes < 1:
-        raise AssertionError(f"launch count {launches} != {per_decode} x {decodes}")
-    if by_body != {"mma": launches["grouped"], "fma": 0}:
-        raise AssertionError(f"B4 launches by body {by_body}: not all through the mma body")
+    log(f"slice: q4_matmul launches in the served run {launches}; expected "
+        f"{per_decode} grouped per decode call ({steps} steps x {layers} layers x 7) x {decodes}")
+    if launches != {"grouped": per_decode * decodes, "dense": 0} or decodes < 1:
+        raise AssertionError(f"launch count {launches} != {per_decode} x {decodes} grouped")
 
     # the same batch through the kernel tail and through the plain int4 tail
     kern = policy.decode(frames, tasks)
@@ -726,7 +736,7 @@ def phase_slice(card: str) -> dict:
     device_breakdown(policy, frames, tasks, 7, timings[8][2], card)
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"slice: peak torch.cuda.max_memory_allocated while serving = {peak:.2f} GiB [{card}]")
-    return {"launches": launches, "by_body": by_body, "timings": timings, "peak_gib": peak,
+    return {"launches": launches, "timings": timings, "peak_gib": peak,
             "policy": policy, "frames": frames, "tasks": tasks, "base": kern, "drift": drift}
 
 
@@ -759,7 +769,7 @@ def phase_options(sl: dict, card: str) -> dict:
     at bs=8 (and a w8a8 7B policy): the int8 and int4 KV caches, visual-token
     pruning, the w8a8 prefill against weight-only int8, and Jacobi drafts
     through HTTP; for each, prefill/tail wall ms, device busy ms, B4
-    launches by body and peak memory."""
+    launches and peak memory."""
     from roboticattack_torch.eval.policy import VLAPolicy
 
     policy, frames, tasks, base = sl["policy"], sl["frames"], sl["tasks"], sl["base"]
@@ -770,8 +780,8 @@ def phase_options(sl: dict, card: str) -> dict:
     rows = {}
 
     def run_option(label, pol, want_b4=None, **opts):
-        """One bs=8 decode with `opts` (B4 launches by body and peak memory
-        over it), then prefill and whole-decode wall times and the device
+        """One bs=8 decode with `opts` (B4 launches and peak memory over
+        it), then prefill and whole-decode wall times and the device
         breakdown of the whole decode."""
         gc.collect()
         torch.cuda.empty_cache()
@@ -779,13 +789,13 @@ def phase_options(sl: dict, card: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         res = decode_call(pol, frames, tasks, 7, **opts)()
-        b4 = dict(q4_matmul.launches_by_body)
+        b4 = q4_matmul.launches["grouped"]
         peak = torch.cuda.max_memory_allocated() / 2**30
         acts = res.actions.cpu().numpy()
         if acts.shape != (bs, 7) or not np.all(np.isfinite(acts)):
             raise AssertionError(f"{label}: actions {acts.shape} not 7 finite a row")
-        if want_b4 is not None and b4 != {"mma": want_b4(res), "fma": 0}:
-            raise AssertionError(f"{label}: B4 launches by body {b4}, expected {want_b4(res)} on the mma body")
+        if want_b4 is not None and b4 != want_b4(res):
+            raise AssertionError(f"{label}: B4 launches {b4}, expected {want_b4(res)}")
         pre, tail, full = timed_decode(pol, frames, tasks, **opts)
         busy = device_breakdown(pol, frames, tasks, 7, full, card, label=f"options {label}", top=3,
                                 **opts)["busy"]
@@ -794,7 +804,7 @@ def phase_options(sl: dict, card: str) -> dict:
         rows[label] = row
         log(f"options: {label} bs={bs}: prefill_ms={pre:.2f} tail_ms={tail:.2f} "
             f"total_ms={full:.2f} device_busy_ms={busy if isinstance(busy, str) else f'{busy:.2f}'} "
-            f"verify_passes={res.verify_passes} B4 launches by body {b4} peak {peak:.2f} GiB "
+            f"verify_passes={res.verify_passes} B4 launches {b4} peak {peak:.2f} GiB "
             f"(resident before {resident:.2f} GiB) [{card}]")
         return res
 
@@ -838,11 +848,11 @@ def phase_options(sl: dict, card: str) -> dict:
         base_url = "http://%s:%d" % server.address
         reset_launches()  # the Jacobi path's count starts here
         r1 = concurrent_posts(base_url + "/act", frames, tasks)
-        l1 = dict(q4_matmul.launches_by_body)
+        l1 = q4_matmul.launches["grouped"]
         h1 = get_json(base_url + "/healthz")["verify_passes"]
         reset_launches()
         r2 = concurrent_posts(base_url + "/act", frames, tasks, drafts=[r["tokens"] for r in r1])
-        l2 = dict(q4_matmul.launches_by_body)  # read right after the main path
+        l2 = q4_matmul.launches["grouped"]  # read right after the main path
         h2 = get_json(base_url + "/healthz")["verify_passes"]
     finally:
         server.shutdown()
@@ -860,8 +870,8 @@ def phase_options(sl: dict, card: str) -> dict:
         raise AssertionError("round-2 tokens differ from round 1's")
     if n2 < 1 or p2 != n2:
         raise AssertionError(f"round 2 ran {p2} verify passes over {n2} batches, not 1.0 a batch")
-    if l1 != {"mma": p1 * per_pass, "fma": 0} or l2 != {"mma": p2 * per_pass, "fma": 0}:
-        raise AssertionError(f"B4 launches {l1}, {l2} != passes x {per_pass}, all on the mma body")
+    if l1 != p1 * per_pass or l2 != p2 * per_pass:
+        raise AssertionError(f"B4 launches {l1}, {l2} != passes x {per_pass}")
     # Jacobi and the sequential tail compute the same logits in another
     # order, so a token may flip only where the sequential margin of its
     # token over Jacobi's is within what two correct computations drift
@@ -1659,18 +1669,18 @@ def phase_checkpoint(card: str, root: str) -> dict:
     reset_launches()  # the main path's count starts here
     got = policy.decode(frames, tasks)
     torch.cuda.synchronize()
-    launches, by_body = dict(q4_matmul.launches), dict(q4_matmul.launches_by_body)
+    launches = dict(q4_matmul.launches)
     per_decode = 6 * layers * 7
     prefill_equal = torch.equal(got.logits[:, 0], want.logits[:, 0])
     tokens_equal = torch.equal(got.tokens, want.tokens)
     log(f"checkpoint: bs={N_REQUESTS} decode, loaded policy vs the in-memory int4 policy of the "
         f"drawn weights: prefill logits bit-equal {prefill_equal}, 7 tokens equal {tokens_equal}, "
-        f"all logits bit-equal {torch.equal(got.logits, want.logits)}; B4 launches {launches}, by "
-        f"body {by_body} (expected {per_decode} = 6 steps x {layers} layers x 7, all mma)")
+        f"all logits bit-equal {torch.equal(got.logits, want.logits)}; B4 launches {launches} "
+        f"(expected {per_decode} grouped = 6 steps x {layers} layers x 7)")
     if not (prefill_equal and tokens_equal):
         raise AssertionError("the loaded policy decodes differently from the drawn weights'")
-    if launches["grouped"] != per_decode or by_body != {"mma": per_decode, "fma": 0}:
-        raise AssertionError(f"B4 launches {launches} by body {by_body} != {per_decode} mma")
+    if launches != {"grouped": per_decode, "dense": 0}:
+        raise AssertionError(f"B4 launches {launches} != {per_decode} grouped")
     out["decode_launches"] = launches["grouped"]
     del ref, want, got
     gc.collect()
@@ -1901,14 +1911,14 @@ def eval_run(root: str, argv: list, trials: int) -> dict:
         return run
 
     def policy_call(self, images, tasks, draft_tokens=None):
-        before = dict(q4_matmul.launches_by_body)
+        before = q4_matmul.launches["grouped"]
         t = time.perf_counter()
         acts = real["get_action_multi"](self, images, tasks, draft_tokens=draft_tokens)
         policy_s = time.perf_counter() - t  # the actions are on the host: the call ended
         steps.append({"images": np.array(images), "tasks": list(tasks), "actions": acts,
                       "tokens": self.last_tokens.copy(), "passes": self.last_verify_passes,
                       "host_ms": host[0] * 1e3, "policy_ms": policy_s * 1e3, "end": time.perf_counter(),
-                      "b4": {b: q4_matmul.launches_by_body[b] - before[b] for b in before}})
+                      "b4": q4_matmul.launches["grouped"] - before})
         host[0] = 0.0
         out["policy"] = self
         return acts
@@ -1924,7 +1934,7 @@ def eval_run(root: str, argv: list, trials: int) -> dict:
             t = time.perf_counter()
             cli.main(argv)
             torch.cuda.synchronize()
-            out["launches"] = dict(q4_matmul.launches_by_body)  # read right after the main path
+            out["launches"] = dict(q4_matmul.launches)  # read right after the main path
             out["seconds"] = time.perf_counter() - t
         finally:
             lib.libero_frame, lib.apply_patch_to_frame = real["libero_frame"], real["apply_patch_to_frame"]
@@ -1937,9 +1947,9 @@ def eval_run(root: str, argv: list, trials: int) -> dict:
 
 def check_eval_run(label: str, run: dict, out_dir: str, patch: np.ndarray, trials: int, jacobi: bool) -> None:
     """The checks of one eval run: the summary line and log name of the JAX
-    format, every episode a success, finite actions, B4 on every step (all
-    on the mma body; a sequential tail 6 x 32 x 7 launches, a Jacobi step
-    passes x 32 x 7), and the frames that reached the policy equal to
+    format, every episode a success, finite actions, B4 on every step (a
+    sequential tail 6 x 32 x 7 launches, a Jacobi step passes x 32 x 7),
+    and the frames that reached the policy equal to
     apply_patch_to_frame(libero_frame(obs)) recomputed from the episodes."""
     from roboticattack_torch.eval.libero import LiberoEvalConfig, apply_patch_to_frame
     from roboticattack_torch.eval.processing import libero_frame
@@ -1964,12 +1974,12 @@ def check_eval_run(label: str, run: dict, out_dir: str, patch: np.ndarray, trial
                 raise AssertionError(f"{label}: step {k} row {j}: the policy's frame differs from "
                                      "apply_patch_to_frame(libero_frame(obs))")
         want_b4 = (st["passes"] if jacobi else 6) * layers * 7
-        if st["b4"] != {"mma": want_b4, "fma": 0} or not np.all(np.isfinite(st["actions"])):
-            raise AssertionError(f"{label}: step {k} B4 {st['b4']} (want {want_b4} mma), passes "
+        if st["b4"] != want_b4 or not np.all(np.isfinite(st["actions"])):
+            raise AssertionError(f"{label}: step {k} B4 {st['b4']} (want {want_b4}), passes "
                                  f"{st['passes']}, actions {st['actions']}")
     if len(run["steps"]) != EVAL_REAL_STEPS:
         raise AssertionError(f"{label}: {len(run['steps'])} control steps, not {EVAL_REAL_STEPS}")
-    if not jacobi and run["launches"] != {"mma": EVAL_REAL_STEPS * per_seq, "fma": 0}:
+    if not jacobi and run["launches"] != {"grouped": EVAL_REAL_STEPS * per_seq, "dense": 0}:
         raise AssertionError(f"{label}: B4 launches {run['launches']}")
 
 
@@ -2003,7 +2013,7 @@ def phase_eval(card: str, root: str) -> dict:
             hist = {}
             for s_ in st:
                 hist[s_["passes"]] = hist.get(s_["passes"], 0) + 1
-            b4 = [s_["b4"]["mma"] + s_["b4"]["fma"] for s_ in st]
+            b4 = [s_["b4"] for s_ in st]
             summary = open(os.path.join(out_dir, f"{EVAL_SUITE}.txt")).read()
             res[label] = {"steps": len(st), "step_ms": float(np.median(run["step_ms"])),
                           "host_ms": float(np.median([s_["host_ms"] for s_ in st])),
@@ -2118,7 +2128,7 @@ def phase_verify(card: str, root: str) -> dict:
             torch.cuda.synchronize()
             legs[name] = {"seconds": time.perf_counter() - t,  # read right after the leg
                           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-                          "b1b2": dict(fa.flash_attention.launches), "b4": dict(q4_matmul.launches_by_body)}
+                          "b1b2": dict(fa.flash_attention.launches), "b4": dict(q4_matmul.launches)}
             if name == "tma_smoke":  # on the leg's own weights and arguments
                 bound = inspect.signature(real[name]).bind(*a, **k)
                 bound.apply_defaults()
@@ -2189,11 +2199,11 @@ def phase_verify(card: str, root: str) -> dict:
         f"gated at {PARITY_REL_TOL}")
     if len(scaled) != 5 or any(not v <= PARITY_SCALED_TOL for v in scaled.values()):
         raise AssertionError(f"parity max_abs / mean |reference| {scaled} > {PARITY_SCALED_TOL}")
-    if sl["b1b2"] != want_fa or ql["b4"] != {"mma": 2 * 6 * layers * 7, "fma": 0}:
+    if sl["b1b2"] != want_fa or ql["b4"] != {"grouped": 2 * 6 * layers * 7, "dense": 0}:
         raise AssertionError(f"verify launches: smoke {sl['b1b2']} (want {want_fa}), quant {ql['b4']}")
     if len(quant_checks) != 2:
         raise AssertionError(f"{len(quant_checks)} int4+qk decodes held against the plain tail, not 2")
-    return {"seconds": secs, "legs": legs, "smoke_launches": sl["b1b2"], "quant_launches": ql["b4"]["mma"],
+    return {"seconds": secs, "legs": legs, "smoke_launches": sl["b1b2"], "quant_launches": ql["b4"]["grouped"],
             "parity": steps["parity"], "rules": n_rules, "quant_against_plain": quant_checks}
 
 
@@ -2356,11 +2366,11 @@ def phase_ddp(card: str) -> dict:
 # directory, each run a torchrun job of 2 or 4 processes on the one card over
 # gloo (NCCL refuses two ranks on one device): a correctness run, not a
 # speed one. (label, CLI, processes, flags, the single-process reference's
-# quantize, the B4 body a rank's shapes take)
+# quantize: groups of 128 at tp 2, of 64 at tp 4)
 TP_RUNS = [
-    ("cli.serve --tp 2", "serve", 2, ["--tp", "2"], "int4", "mma"),
-    ("cli.serve --dp 2 --tp 2", "serve", 4, ["--dp", "2", "--tp", "2"], "int4", "mma"),
-    ("cli.eval_libero --tp 4", "eval", 4, ["--tp", "4"], "int4:64", "fma"),
+    ("cli.serve --tp 2", "serve", 2, ["--tp", "2"], "int4"),
+    ("cli.serve --dp 2 --tp 2", "serve", 4, ["--dp", "2", "--tp", "2"], "int4"),
+    ("cli.eval_libero --tp 4", "eval", 4, ["--tp", "4"], "int4:64"),
 ]
 TP_TIMEOUT_S = 300
 TP_LOAD_PEAK_GIB = 12.0  # under the whole bf16 7B's 14.0 GiB: a rank holding the whole model fails
@@ -2484,7 +2494,7 @@ def check_tokens_by_margin(label: str, ref, plain, calls: list) -> dict:
 def phase_tp(card: str, root: str) -> dict:
     """The runs of TP_RUNS on the int4 7B from `root` and their checks:
     every rank exits 0; each rank's every decode launches B4 1344 times
-    (6 steps x 32 layers x 7), all on the body its shapes take; each rank's
+    (6 steps x 32 layers x 7); each rank's
     load peaks below TP_LOAD_PEAK_GIB; the replies (serve) are 7 finite
     actions and the env actions (eval) finite, the eval's summary and log
     of the JAX format; the tokens equal one process's on the same
@@ -2507,7 +2517,7 @@ def phase_tp(card: str, root: str) -> dict:
     base = ["--checkpoint", root, "--model", MODEL, "--quantize", "int4", "--device", DEVICE]
     out = {}
     try:
-        for label, kind, nproc, flags, ref_quant, body in TP_RUNS:
+        for label, kind, nproc, flags, ref_quant in TP_RUNS:
             run_dir = os.path.join(work, f"{kind}_{nproc}")
             os.makedirs(run_dir)
             if kind == "serve":
@@ -2521,7 +2531,6 @@ def phase_tp(card: str, root: str) -> dict:
             ranks = run["ranks"]
             if run["rc"] != 0 or sorted(ranks) != list(range(nproc)) or run["record"] is None:
                 raise AssertionError(f"tp {label}: exit {run['rc']}, rank lines {sorted(ranks)}\n{run['tail']}")
-            want = {"mma": 0, "fma": 0, body: per_decode}
             for r, v in sorted(ranks.items()):
                 ms = v["decode_ms"]
                 log(f"tp: {label}: rank {r} on {v['device']} ({v['backend']}): load peak {v['load_peak_gib']:.2f} GiB "
@@ -2532,8 +2541,8 @@ def phase_tp(card: str, root: str) -> dict:
                     f"ms median {np.median(ms):.2f} (min {min(ms):.2f}, max {max(ms):.2f}), B4 a decode "
                     f"{v['b4'][0]} ({nproc} processes on one card over {v['backend']}: a correctness run, "
                     f"not a speed) [{card}]")
-                if any(b != want for b in v["b4"]) or not v["decodes"]:
-                    raise AssertionError(f"tp {label}: rank {r}'s B4 launches a decode {v['b4']}, want {want}")
+                if any(b != per_decode for b in v["b4"]) or not v["decodes"]:
+                    raise AssertionError(f"tp {label}: rank {r}'s B4 launches a decode {v['b4']}, want {per_decode}")
                 if not v["load_peak_gib"] < TP_LOAD_PEAK_GIB:
                     raise AssertionError(f"tp {label}: rank {r}'s load peaked at {v['load_peak_gib']:.2f} GiB")
             if len({v["decodes"] for v in ranks.values()}) != 1:
@@ -2545,7 +2554,7 @@ def phase_tp(card: str, root: str) -> dict:
                    "load_held_gib": {r: v["load_held_gib"] for r, v in ranks.items()},
                    "run_peak_gib": {r: v["run_peak_gib"] for r, v in ranks.items()},
                    "decode_ms": {r: float(np.median(v["decode_ms"])) for r, v in ranks.items()},
-                   "b4_per_rank": {r: sum(b[body] for b in v["b4"]) for r, v in ranks.items()}, "body": body}
+                   "b4_per_rank": {r: sum(v["b4"]) for r, v in ranks.items()}}
             gc.collect()
             torch.cuda.empty_cache()
             ref_policy = load_policy(root, MODEL, quantize=ref_quant, device="cuda")
@@ -3321,7 +3330,7 @@ def main() -> int:
         log(f"build: {lib} in {r['seconds']:.1f} s; {ptxas_report(r['log'])}")
     log(f"build: all kernels ready in {time.perf_counter() - t:.1f} s")
 
-    rows, group_err = phase_kernels(bw)
+    rows, checked = phase_kernels(bw)
     res = phase_slice(card)
     opts = phase_options(res, card)
     for key in ("policy", "base"):  # the int4 policy of the serving phases
@@ -3397,43 +3406,42 @@ def main() -> int:
                     "at": f"a {label} attack rank's local heads, bf16, the dummy batch's bias, per launch"}
                 for label, r in flash_tp.items()},
         })
-    for mode, (kname, replaces, body) in KERNELS.items():
-        def layer_sum(key, m=8):
-            return sum(r[key] * r["per_layer"] for r in rows if r["mode"] == mode and r["m"] == m)
+    for mode, (kname, replaces) in KERNELS.items():
+        def layer_sum(key, m=8, gs=GROUP):
+            return sum(r[key] * r["per_layer"] for r in rows if r["mode"] == mode and r["m"] == m and r["group"] == gs)
 
+        held = [r for r in rows + checked if r["mode"] == mode]
         kernels.append({
             "name": kname, "route": "cuda", "source": SOURCE, "replaces": replaces,
-            "body": body, "launches": res["launches"][mode],
-            "max_abs_err": max([r["max_abs_err"] for r in rows if r["mode"] == mode] + [group_err[mode]]
+            "launches": res["launches"][mode],
+            "max_abs_err": max([r["max_abs_err"] for r in held]
                                + ([r["max_abs_err"] for r in tp_rows.values()] if mode == "grouped" else [])),
             "ms": layer_sum("ms"), "plain_ms": layer_sum("plain_ms"),
             "bound_ms": layer_sum("bound_ms"),
             "bound_by": "bytes" if layer_sum("byte_ms") >= layer_sum("op_ms") else "operations",
             "library_ms": layer_sum("library_ms"),
-            "at": "one decoder layer's 7 projections at m=8 (4x 4096x4096, "
+            "at": f"one decoder layer's 7 projections at m=8, groups of {GROUP} (4x 4096x4096, "
                   "2x 11008x4096, 1x 4096x11008), summed per-launch times",
-            "max_abs_err_over": f"the 7B shapes at m={'/'.join(map(str, M_ROWS if mode == 'grouped' else M_ROWS[:-1]))}, "
-                                f"and 4096x4096 at m=8 with groups of "
-                                f"32 and 64 ({'on the fma body' if mode == 'grouped' else 'on the mma body'})"
+            "max_abs_err_over": "; ".join(sorted({f"groups of {r['group']} at m={r['m']}" for r in held}))
+                                + " (the 7B shapes; each bit-equal across two launches)"
                                 + ("; a tp rank's shapes at every m its runs gave them: "
-                                   + "; ".join(f"tp={tp} at m={'/'.join(map(str, r['by_m']))}"
+                                   + "; ".join(f"tp={tp}, groups of {r['group']}, at m={'/'.join(map(str, r['by_m']))}"
                                                for tp, r in tp_rows.items()) if mode == "grouped" else ""),
             "on_main_path": mode == "grouped",
         })
         if mode == "grouped":
-            m56 = [r for r in rows if r["mode"] == mode and r["m"] == JACOBI_M]
+            m56 = [r for r in rows if r["mode"] == mode and r["m"] == JACOBI_M and r["group"] == GROUP]
             kernels[-1].update({
                 "launches_by_path": {"slice (HTTP, sequential tail)": res["launches"][mode],
                                      "checkpoint (loaded policy, one bs 8 decode)":
                                          ckpt["decode_launches"],
                                      "checkpoint (HTTP over the loaded policy)": ckpt["http_launches"],
-                                     **{f"eval_libero {k} (int4, from the checkpoint)": v["b4"]["mma"] + v["b4"]["fma"]
+                                     **{f"eval_libero {k} (int4, from the checkpoint)": v["b4"]["grouped"]
                                         for k, v in ev["runs"].items()},
                                      "verify_checkpoint quant int4+qk (bs 2, 2 batches)": ver["quant_launches"],
-                                     **{f"torchrun {label}, rank {r} ({run['body']} body)": n
+                                     **{f"torchrun {label}, rank {r}": n
                                         for label, run in tpr.items() for r, n in run["b4_per_rank"].items()},
-                                     **{f"options Jacobi HTTP {k}": v["mma"] + v["fma"]
-                                        for k, v in opts["jacobi_launches"].items()}},
+                                     **{f"options Jacobi HTTP {k}": v for k, v in opts["jacobi_launches"].items()}},
                 "jacobi_verify_passes": {"round 1": opts["passes"][0], "round 2": opts["passes"][1]},
                 "ms_m56": layer_sum("ms", JACOBI_M), "plain_ms_m56": layer_sum("plain_ms", JACOBI_M),
                 "bound_ms_m56": layer_sum("bound_ms", JACOBI_M),
@@ -3441,8 +3449,15 @@ def main() -> int:
                 "max_abs_err_m56": max(r["max_abs_err"] for r in m56),
                 "at_m56": "the Jacobi pass at bs 8, y [8, 7, in]: one layer's 7 projections, "
                           "summed per-launch times",
+                "layers": {
+                    f"groups of {gs}, m={m}": {
+                        "ms": layer_sum("ms", m, gs), "plain_ms": layer_sum("plain_ms", m, gs),
+                        "bound_ms": layer_sum("bound_ms", m, gs), "library_ms": layer_sum("library_ms", m, gs),
+                        "bound_by": "bytes" if layer_sum("byte_ms", m, gs) >= layer_sum("op_ms", m, gs)
+                        else "operations"}
+                    for gs in GROUPS for m in M_ROWS},
                 "per_rank_shapes": {
-                    f"tp {tp} m={m}": {"body": r["body"], "group": r["group"], "ms": t["ms"],
+                    f"tp {tp} m={m}": {"group": r["group"], "ms": t["ms"],
                                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                                        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                                        "max_abs_err_tp": r["max_abs_err"],

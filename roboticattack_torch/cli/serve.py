@@ -26,7 +26,7 @@ a dp x tp mesh from one process):
 Rank 0 binds the port and runs the batcher and the warmup; the other ranks
 follow each of its decodes (serving/ranks.py) and exit 0 when it stops.
 Each rank prints one `serving rank r/W: {json}` line at the end (its load
-and run peaks, each decode's wall ms and int4-kernel launches by body).
+and run peaks, each decode's wall ms and int4-kernel (B4) launches).
 
 The flags are the JAX CLI's (roboticattack_tpu/cli/serve.py), with
 `--platform` replaced by `--device cuda|cpu`.

@@ -136,7 +136,7 @@ class VLAPolicy:
         tree = self._load(tree, cfg, mesh, cooked_weights, quant_mode, quant_gs)
         self.mesh = mesh
         self._dp_warned: set = set()
-        # under a mesh: the last 1024 decodes' rows, wall ms and B4 launches by body
+        # under a mesh: the last 1024 decodes' rows, wall ms and B4 launches
         self.decode_log = collections.deque(maxlen=1024)
         self.model = VLA(cfg, tree).eval()
         self.cfg = cfg

@@ -7,18 +7,18 @@ decode tail's default) and `_kernel_dense` (B5, mode="dense"). The CUDA
 source is `roboticattack_torch/csrc/q4_matmul.cu`; its header says how the
 work is laid out.
 
-What bounds it on the card: memory bytes. At decode batch sizes (m = B*S <=
-16 rows) every call streams the packed weights once, out*in/2 bytes, plus the
-f32 scales, out*G*4 bytes, against the card's bandwidth (3.35 TB/s on an
-H100 SXM); the operations (2*m*out*in) are far below the tensor-core peak.
+What bounds it on the card: memory bytes. At decode sizes (m = B*S rows:
+B at the sequential tail, 7*B in a Jacobi pass) every call streams the packed
+weights once, out*in/2 bytes, plus the f32 scales, out*G*4 bytes, against
+the card's bandwidth (3.35 TB/s on an H100 SXM); the operations (2*m*out*in)
+are far below the tensor-core peak.
 
-Two kernel bodies, chosen from the shape before the launch (`body_for`):
-"mma" for dense mode and for grouped mode with a group size that is a
-multiple of 128 channels (the 7B's decode tail): bf16 tensor cores on
-nibbles unpacked (and, in dense mode, dequantized) in registers, the weights
-streamed through a shared-memory ring with cp.async, K split among a block's
-warps. "fma" for grouped mode with groups of 32 or 64 channels: CUDA-core
-FMAs, activations staged in shared memory per K tile.
+One kernel body for both modes, every group size the wrapper takes and every
+m: bf16 tensor cores on nibbles unpacked (and, in dense mode, dequantized) in
+registers, the weights streamed through a shared-memory ring with cp.async,
+each weight fragment feeding up to 8 tiles of 8 activation rows (m <= 64 in
+one read of the weights), in grouped mode by a fragment map that keeps each
+mma inside one group. `entry_for` names the C entry a launch takes.
 
 Layout contract (the JAX package's models/quant.py): w [out, in/2] int8 with
 channel 2j in the low nibble and 2j+1 in the high nibble; scale [out, G] f32
@@ -36,7 +36,6 @@ import ctypes
 import torch
 
 MODES = ("grouped", "dense")
-BODIES = ("mma", "fma")
 # the group sizes (channels) the CUDA kernel takes: 32 * 2^k, k <= 5, i.e.
 # 1, 2, 4, ..., 32 lanes of 32 channels a group (`q4_matmul` and `VLAPolicy`
 # both check against this)
@@ -107,19 +106,24 @@ def q4_matmul_plain(
     return acc.to(y.dtype).reshape(b, s, out_dim)
 
 
-def body_for(mode: str, in_dim: int, groups: int) -> str:
-    """The kernel body a CUDA launch of this shape takes: "mma" (the tensor
-    cores) for dense mode and for grouped mode whose group size is a
-    multiple of 128 channels, "fma" (the CUDA cores) for grouped mode with
-    groups of 32 or 64: a grouped partial must belong to one group, and an
-    mma mixes the channels of a whole 128-channel k-block."""
-    return "mma" if mode == "dense" or (in_dim // groups) % 128 == 0 else "fma"
+def entry_for(mode: str, in_dim: int, groups: int) -> str:
+    """The C entry of csrc/q4_matmul.cu that a CUDA launch of this shape
+    takes: the tensor-core body in grouped or dense mode, for every group of
+    32 * 2^k channels (k <= 5); raises on any other group size."""
+    if mode not in MODES:
+        raise ValueError(f"mode={mode!r}; supported: {MODES}")
+    if in_dim % 32 or in_dim % groups or in_dim // groups not in KERNEL_GROUP_SIZES:
+        raise ValueError(
+            f"the CUDA q4_matmul kernel needs in % 32 == 0 and a group size "
+            f"of 32 * 2^k channels (k <= 5); got in={in_dim}, {groups} groups"
+        )
+    return f"q4_matmul_{mode}_mma_bf16"
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    if lib.q4_matmul_bf16.argtypes is None:
+    if lib.q4_matmul_grouped_mma_bf16.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.q4_matmul_bf16, lib.q4_matmul_grouped_mma_bf16, lib.q4_matmul_dense_mma_bf16):
+        for fn in (lib.q4_matmul_grouped_mma_bf16, lib.q4_matmul_dense_mma_bf16):
             fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
             fn.restype = i32
         lib.q4_matmul_error_string.argtypes = [i32]
@@ -131,9 +135,9 @@ def q4_matmul(y: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, mode: str =
     """[B, S, in] @ dequant(w[out, in/2], scale[out, G])^T -> [B, S, out].
 
     CUDA tensors: launches the hand-written kernel (B4 grouped / B5 dense)
-    on the current stream, with the body `body_for` names, and counts the
-    launch in `q4_matmul.launches` (by mode) and `q4_matmul.launches_by_body`.
-    CPU tensors: the plain version in float32 (no launch, no count)."""
+    on the current stream through the entry `entry_for` names, and counts
+    the launch in `q4_matmul.launches` (by mode). CPU tensors: the plain
+    version in float32 (no launch, no count)."""
     _check_shapes(y, w, scale, mode)
     if y.device.type == "cpu":
         return q4_matmul_plain(y, w, scale, mode, torch.float32)
@@ -155,43 +159,28 @@ def q4_matmul(y: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, mode: str =
         if t.data_ptr() % 16:
             raise ValueError(f"q4_matmul: {name} must be 16-byte aligned")
     b, s, in_dim = y.shape
-    out_dim, in_half = w.shape
+    out_dim = w.shape[0]
     g = scale.shape[1]
-    if in_dim % 32 or in_half % g or in_dim // g not in KERNEL_GROUP_SIZES:
-        raise ValueError(
-            f"the CUDA q4_matmul kernel needs in % 32 == 0 and a group size "
-            f"of 32 * 2^k channels (k <= 5); got in={in_dim}, group size "
-            f"{in_dim // g}"
-        )
-    body = body_for(mode, in_dim, g)
+    entry = entry_for(mode, in_dim, g)
     out = torch.empty((b, s, out_dim), dtype=y.dtype, device=y.device)
     lib = _bind(_load())
-    args = (y.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), b * s, in_dim, out_dim, g)
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
-        if body == "fma":
-            rc = lib.q4_matmul_bf16(*args, stream)
-        elif mode == "dense":
-            rc = lib.q4_matmul_dense_mma_bf16(*args, stream)
-        else:
-            rc = lib.q4_matmul_grouped_mma_bf16(*args, stream)
+        rc = getattr(lib, entry)(y.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), b * s, in_dim,
+                                 out_dim, g, stream)
     if rc != 0:
         msg = lib.q4_matmul_error_string(rc).decode()
-        raise RuntimeError(f"q4_matmul kernel launch failed ({body} body): {msg} (cudaError {rc})")
+        raise RuntimeError(f"q4_matmul kernel launch failed ({entry}): {msg} (cudaError {rc})")
     q4_matmul.launches[mode] += 1
-    q4_matmul.launches_by_body[body] += 1
     return out
 
 
 q4_matmul.launches = {mode: 0 for mode in MODES}
-q4_matmul.launches_by_body = {body: 0 for body in BODIES}
 
 
 def reset_launches() -> None:
     for mode in MODES:
         q4_matmul.launches[mode] = 0
-    for body in BODIES:
-        q4_matmul.launches_by_body[body] = 0
 
 
 def _load() -> ctypes.CDLL:

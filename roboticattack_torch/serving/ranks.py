@@ -126,7 +126,7 @@ def decode_on_ranks(policy, inputs, draft_tokens, num_steps: int, opts: dict) ->
     the batch (else the whole batch, with a warning once a batch size), the
     decode over its shard, and on the first model rank of each replica the
     replicas' rows gathered back in order. Records the decode's wall ms and
-    int4-kernel launches by body in `policy.decode_log`."""
+    int4-kernel (B4) launches in `policy.decode_log`."""
     from ..ops.q4_matmul import q4_matmul
 
     mesh = policy.mesh
@@ -143,7 +143,7 @@ def decode_on_ranks(policy, inputs, draft_tokens, num_steps: int, opts: dict) ->
         rows = slice(mesh.d * n, (mesh.d + 1) * n)
         ids, mask, pixels = ids[rows], mask[rows], pixels[rows]
         draft_tokens = None if draft_tokens is None else draft_tokens[rows]
-    before = dict(q4_matmul.launches_by_body)
+    before = q4_matmul.launches["grouped"]
     cuda = policy.device.type == "cuda"
     t = time.perf_counter()
     with torch.inference_mode():
@@ -152,7 +152,7 @@ def decode_on_ranks(policy, inputs, draft_tokens, num_steps: int, opts: dict) ->
     if cuda:
         torch.cuda.synchronize(policy.device)
     policy.decode_log.append({"rows": int(ids.shape[0]), "ms": (time.perf_counter() - t) * 1e3,
-                              "b4": {k: q4_matmul.launches_by_body[k] - v for k, v in before.items()}})
+                              "b4": q4_matmul.launches["grouped"] - before})
     if split and mesh.m == 0:
         res = res._replace(tokens=_gather_rows(res.tokens, mesh), actions=_gather_rows(res.actions, mesh),
                            logits=None if res.logits is None else _gather_rows(res.logits, mesh))
@@ -178,7 +178,7 @@ def rank_report(policy) -> dict:
     """This rank's numbers for the CLIs' `serving rank r/W: {json}` line:
     its place, backend and device, the peak memory of its load and of its
     run, and the last 1024 decodes' rows, wall ms and int4-kernel launches
-    by body."""
+    (B4)."""
     mesh = policy.mesh
     cuda = policy.device.type == "cuda"
     log = policy.decode_log

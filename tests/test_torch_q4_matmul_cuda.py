@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from roboticattack_torch.ops.q4_matmul import body_for, q4_matmul, q4_matmul_plain
+from roboticattack_torch.ops.q4_matmul import entry_for, q4_matmul, q4_matmul_plain
 
 
 @pytest.fixture
@@ -40,17 +40,25 @@ def _mk(out_dim, in_dim, gs, m, device, seed=5):
 @pytest.mark.parametrize("out_dim,in_dim,gs,m", [
     (4096, 4096, 128, 1), (4096, 4096, 128, 8), (11008, 4096, 128, 8),
     (4096, 11008, 128, 1), (4096, 11008, 128, 8),
-    (384, 768, 128, 13),   # ragged output edge, m > 8 (two row chunks)
-    (200, 512, 64, 3),     # 2 lanes per group, out not a multiple of 16
-    (64, 2048, 1024, 2),   # one group spans the whole warp
-    (200, 512, 128, 3),    # tensor-core body: ragged output edge, m < 8
-    (384, 1024, 256, 5),   # tensor-core body: groups of 256 (2 k-blocks)
-    (96, 384, 128, 4),     # tensor-core body: an odd count of 128-channel k-blocks
+    (384, 768, 128, 13),   # ragged output edge, m > 8 (2 n-tiles)
+    (200, 512, 64, 3),     # groups of 64, out not a multiple of 16
+    (64, 2048, 1024, 2),   # one group spans 8 k-blocks
+    (200, 512, 128, 3),    # ragged output edge, m < 8
+    (384, 1024, 256, 5),   # groups of 256 (2 k-blocks)
+    (96, 384, 128, 4),     # an odd count of 128-channel k-blocks
     (4096, 4096, 128, 2),
-    (4096, 4096, 32, 8),   # groups of 32 (dense: 4 scales a row a k-block)
-    (4096, 4096, 64, 1),   # groups of 64 (dense: 2)
-    (200, 352, 32, 5),     # dense: a partial last k-block (in % 128 == 96)
-    (96, 320, 64, 9),      # dense: a partial last k-block (in % 128 == 64), m > 8
+    (4096, 4096, 32, 8),   # groups of 32 (4 scales a row a k-block)
+    (4096, 4096, 64, 1),   # groups of 64 (2)
+    (200, 352, 32, 5),     # a partial last k-block (in % 128 == 96)
+    (96, 320, 64, 9),      # a partial last k-block (in % 128 == 64), m > 8
+    (4096, 4096, 128, 56),   # the Jacobi pass at bs 8: 7 n-tiles
+    (4096, 4096, 64, 57),    # m not a multiple of 8: 8 n-tiles, the last ragged
+    (4096, 4096, 32, 64),    # 8 full n-tiles
+    (1024, 4096, 64, 65),    # two row chunks of 64 (a tp=4 rank's q/k/v)
+    (4096, 2752, 64, 3),     # a tp=4 rank's down_w: 21.5 k-blocks
+    (2752, 4096, 32, 8),
+    (4096, 2752, 32, 57),
+    (11008, 4096, 64, 24),   # 4 n-tiles, the last empty
 ])
 def test_cuda_kernel_matches_plain(cuda, mode, out_dim, in_dim, gs, m):
     """Both sides accumulate in f32 in different orders and round the output
@@ -87,31 +95,34 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode,gs,body", [
-    ("grouped", 128, "mma"), ("grouped", 256, "mma"), ("grouped", 64, "fma"),
-    ("dense", 128, "mma"), ("dense", 64, "mma"), ("dense", 32, "mma"),
+@pytest.mark.parametrize("mode,gs", [
+    ("grouped", 128), ("grouped", 256), ("grouped", 64), ("grouped", 32),
+    ("dense", 128), ("dense", 64), ("dense", 32),
 ])
-def test_cuda_dispatch_counts_the_body_that_ran(cuda, mode, gs, body):
-    """Grouped mode with groups of 128 * 2^k, and dense mode, launch the
-    tensor-core body; grouped groups of 64 the FMA body."""
+def test_cuda_dispatch_counts_the_body_that_ran(cuda, mode, gs):
+    """Every group size launches the one tensor-core body through its
+    mode's entry (groups of 32/64 in grouped mode too), counted once in its
+    mode."""
     y, w, scale = _mk(256, 1024, gs, 4, cuda)
-    assert body_for(mode, 1024, 1024 // gs) == body
-    before = dict(q4_matmul.launches_by_body)
-    q4_matmul(y, w, scale, mode=mode)
+    assert entry_for(mode, 1024, 1024 // gs) == f"q4_matmul_{mode}_mma_bf16"
+    before = dict(q4_matmul.launches)
+    got = q4_matmul(y, w, scale, mode=mode)
     torch.cuda.synchronize()
-    want = dict(before, **{body: before[body] + 1})
-    assert q4_matmul.launches_by_body == want
+    assert q4_matmul.launches == dict(before, **{mode: before[mode] + 1})
+    want = q4_matmul_plain(y, w, scale, mode, torch.bfloat16)
+    assert (got.float() - want.float()).abs().max().item() <= 2**-7 * want.float().abs().max().item()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode,gs", [("grouped", 128), ("dense", 128), ("dense", 64), ("dense", 32)])
-@pytest.mark.parametrize("out_dim,in_dim,m", [(4096, 11008, 8), (11008, 4096, 1)])
+@pytest.mark.parametrize("mode,gs", [("grouped", 128), ("grouped", 64), ("grouped", 32), ("dense", 128),
+                                     ("dense", 64), ("dense", 32)])
+@pytest.mark.parametrize("out_dim,in_dim,m", [(4096, 11008, 8), (11008, 4096, 1), (4096, 4096, 3), (4096, 4096, 56),
+                                              (4096, 11008, 57), (11008, 4096, 64), (4096, 4096, 65)])
 def test_cuda_mma_body_is_bit_deterministic(cuda, mode, gs, out_dim, in_dim, m):
     """The warps' partials are summed in a fixed order: two calls give the
-    same bits (dense mode at each scale layout: 1, 2 and 4 scales a row a
-    k-block)."""
+    same bits (each scale layout: 1, 2 and 4 scales a row a k-block; 1 to 8
+    n-tiles and two row chunks)."""
     y, w, scale = _mk(out_dim, in_dim, gs, m, cuda)
-    assert body_for(mode, in_dim, in_dim // gs) == "mma"
     first = q4_matmul(y, w, scale, mode=mode)
     second = q4_matmul(y, w, scale, mode=mode)
     torch.cuda.synchronize()
@@ -119,17 +130,19 @@ def test_cuda_mma_body_is_bit_deterministic(cuda, mode, gs, out_dim, in_dim, m):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("gs", [128, 64])
 @pytest.mark.parametrize("out_dim,in_dim", [(4096, 4096), (11008, 4096), (4096, 11008)])
-def test_cuda_grouped_kernel_at_the_jacobi_pass_shape(cuda, out_dim, in_dim):
-    """The Jacobi pass at bs=8 sends y [8, 7, in] (m = 56 rows, seven row
-    chunks of 8) through B4 on the mma body; within a couple of bf16 ulps
+def test_cuda_grouped_kernel_at_the_jacobi_pass_shape(cuda, out_dim, in_dim, gs):
+    """The Jacobi pass at bs=8 sends y [8, 7, in] (m = 56 rows, seven
+    n-tiles of 8 fed by one read of the weights) through B4, at the 7B's
+    groups of 128 and at 64 (explicit int4:64); within a couple of bf16 ulps
     (2^-7 of the largest output) of the plain version."""
-    y, w, scale = _mk(out_dim, in_dim, 128, 56, cuda)
+    y, w, scale = _mk(out_dim, in_dim, gs, 56, cuda)
     y = y.reshape(8, 7, in_dim)
-    before = dict(q4_matmul.launches_by_body)
+    before = dict(q4_matmul.launches)
     got = q4_matmul(y, w, scale)
     torch.cuda.synchronize()
-    assert q4_matmul.launches_by_body == dict(before, mma=before["mma"] + 1)
+    assert q4_matmul.launches == dict(before, grouped=before["grouped"] + 1)
     assert got.shape == (8, 7, out_dim) and got.dtype == torch.bfloat16
     want = q4_matmul_plain(y, w, scale, "grouped", torch.bfloat16)
     err = (got.float() - want.float()).abs().max().item()
