@@ -101,10 +101,15 @@ Phases, each of which fails the run (non-zero exit, no result line) on error:
                --tp 2` with 8 HTTP clients (then SIGINT to rank 0), and
                `cli.eval_libero --tp 4` over the eval phase's replayed
                episodes; 2-4 processes share the one card over gloo (no
-               scaling measure). Per rank: exit 0, 1344 B4 launches a decode
+               scaling measure; the eval's episodes end after 2 real
+               steps). Per rank: exit 0, 1344 B4 launches a decode
                (groups of 128 at tp 2, of 64 at tp 4),
-               the load peak below 12 GiB (and what the rank keeps of it),
-               decode wall ms; the tokens against a single-process policy on
+               the load peak below 12 GiB, what the rank keeps of it equal
+               to its leaves as the audit gives them (parallel/evidence.py,
+               meta tensors: `chip_smoke.py audits`, a process of its own
+               without the card, started before this phase) up to the
+               allocator's rounding, decode wall ms; the tokens against a
+               single-process policy on
                the same checkpoint and group size by the margin rule of the
                eval phase. Then B4 against its plain version, timed, at each
                tp's per-rank shapes and every row count m those runs gave
@@ -122,10 +127,11 @@ Phases, each of which fails the run (non-zero exit, no result line) on error:
                process's (1 - cosine) than twice the one process's own
                distance from the f32 gradient of the same weights and step
                (run in the phase), one patch SHA-256 across the ranks,
-               64 / 32 B1 / B2 launches, the collective inventory (one patch
-               and one packed-sums all-reduce on the data group, 5 activation
-               sums a layer on the model group, no gather of 1 MB), the load
-               and step peaks beside a reckoning from the leaves. Then B1/B2
+               64 / 32 B1 / B2 launches, the collectives it recorded equal,
+               as a multiset, to the audit of the same rank and step on meta
+               tensors, its leaves' bytes equal to the audit's, no gather of
+               1 MB, the load and step peaks beside a reckoning from the
+               leaves. Then B1/B2
                at the ranks' local-head shapes [8, 16, 288, 128] and [4, 16,
                288, 128], fed as strided views: bit-equal to the kernels on
                all heads there, against the plain versions, timed.
@@ -140,7 +146,10 @@ Phases, each of which fails the run (non-zero exit, no result line) on error:
                forward+backward and update ms and its device profile; the
                loss and five leaves' gradients through the kernels against
                plain attention; the tiny train-then-attack on the card (the
-               JAX integration test's thresholds); then a torchrun job of
+               JAX integration test's thresholds, and its int4 policies with
+               int4_kernel unset where the kernel cannot run: an f32 model,
+               groups of 16; the kernel off, 7 finite actions); then a
+               torchrun job of
                two `chip_smoke.py train-rank` processes on the card over
                gloo (the 7B's widths with 2 LLM layers, bs 8 global, 3
                steps, ddp then fsdp): exit 0, one parameter SHA-256 across
@@ -2374,6 +2383,13 @@ TP_RUNS = [
 ]
 TP_TIMEOUT_S = 300
 TP_LOAD_PEAK_GIB = 12.0  # under the whole bf16 7B's 14.0 GiB: a rank holding the whole model fails
+TP_QUANTIZE = "int4"  # the runs' --quantize: groups of int4_group_size_for(7B, tp), 128 at tp 2, 64 at tp 4
+# What a rank keeps after its load (torch.cuda.memory_allocated) exceeds its
+# audited leaves' bytes by the caching allocator's rounding alone (a block is
+# a multiple of 512 B, and a large one is not split when under 1 MiB would be
+# left): the gap, in MiB, by tp, is held to the window predicted in PERF.md
+# §6 from the ranks' rounded holdings, before the card measured it.
+TP_HELD_GAP_MIB = {2: (0, 4), 4: (3, 14)}
 
 
 def tp_rank_main(argv: list) -> int:
@@ -2491,14 +2507,16 @@ def check_tokens_by_margin(label: str, ref, plain, calls: list) -> dict:
     return {"differ": differ, "tokens": n, "flips": flips, "bound": bound}
 
 
-def phase_tp(card: str, root: str) -> dict:
+def phase_tp(card: str, root: str, audits: "Audits") -> dict:
     """The runs of TP_RUNS on the int4 7B from `root` and their checks:
     every rank exits 0; each rank's every decode launches B4 1344 times
     (6 steps x 32 layers x 7); each rank's
-    load peaks below TP_LOAD_PEAK_GIB; the replies (serve) are 7 finite
-    actions and the env actions (eval) finite, the eval's summary and log
-    of the JAX format; the tokens equal one process's on the same
-    checkpoint and group size by the margin rule."""
+    load peaks below TP_LOAD_PEAK_GIB; what it keeps after the load is its
+    audited leaves' bytes (parallel/evidence.py rank_params, on meta) up
+    to the allocator's rounding (a gap inside TP_HELD_GAP_MIB); the
+    replies (serve) are 7 finite actions and the env actions (eval) finite,
+    the eval's summary and log of the JAX format; the tokens equal one
+    process's on the same checkpoint and group size by the margin rule."""
     from roboticattack_torch.attacks.artifacts import save_patch_pt
 
     t_phase = time.perf_counter()
@@ -2514,8 +2532,8 @@ def phase_tp(card: str, root: str) -> dict:
     patch = np.random.default_rng(SEED).uniform(0, 1, (50, 50, 3)).astype(np.float32)
     patch_path = os.path.join(work, "patch.pt")
     save_patch_pt(patch, patch_path)
-    base = ["--checkpoint", root, "--model", MODEL, "--quantize", "int4", "--device", DEVICE]
-    out = {}
+    base = ["--checkpoint", root, "--model", MODEL, "--quantize", TP_QUANTIZE, "--device", DEVICE]
+    out, refs = {}, {}
     try:
         for label, kind, nproc, flags, ref_quant in TP_RUNS:
             run_dir = os.path.join(work, f"{kind}_{nproc}")
@@ -2547,6 +2565,19 @@ def phase_tp(card: str, root: str) -> dict:
                     raise AssertionError(f"tp {label}: rank {r}'s load peaked at {v['load_peak_gib']:.2f} GiB")
             if len({v["decodes"] for v in ranks.values()}) != 1:
                 raise AssertionError(f"tp {label}: decodes by rank {[v['decodes'] for v in ranks.values()]}")
+            audited = audits.result("decode")["ranks"]
+            held = {}
+            for r, v in sorted(ranks.items()):
+                a = audited[f"{label}, rank {r}"]
+                gap = round(v["load_held_gib"] * 2**30) - a["param_bytes"]
+                lo, hi = TP_HELD_GAP_MIB[v["tp"]]
+                log(f"tp: {label}: rank {r} keeps {round(v['load_held_gib'] * 2**30)} B after its load; its "
+                    f"{a['leaves']} leaves audited on meta (no card): {a['param_bytes']} B; gap {gap} B "
+                    f"(allowed {lo} to {hi} MiB, the allocator's rounding) [{card}]")
+                if not lo * MB <= gap <= hi * MB:
+                    raise AssertionError(f"tp {label}: rank {r} keeps {gap} B beyond its audited leaves, "
+                                         f"outside {lo}-{hi} MiB")
+                held[r] = {"audit_bytes": a["param_bytes"], "gap_bytes": gap}
             calls = run["record"]["calls"]
             res = {"seconds": run["seconds"], "decodes": ranks[0]["decodes"], "tp": ranks[0]["tp"],
                    "rows": sorted({m for v in ranks.values() for m in v["rows"]}),
@@ -2554,10 +2585,13 @@ def phase_tp(card: str, root: str) -> dict:
                    "load_held_gib": {r: v["load_held_gib"] for r, v in ranks.items()},
                    "run_peak_gib": {r: v["run_peak_gib"] for r, v in ranks.items()},
                    "decode_ms": {r: float(np.median(v["decode_ms"])) for r, v in ranks.items()},
-                   "b4_per_rank": {r: sum(v["b4"]) for r, v in ranks.items()}}
-            gc.collect()
-            torch.cuda.empty_cache()
-            ref_policy = load_policy(root, MODEL, quantize=ref_quant, device="cuda")
+                   "b4_per_rank": {r: sum(v["b4"]) for r, v in ranks.items()}, "held_vs_audit": held}
+            if ref_quant not in refs:  # one single-process reference a group size, kept for the next run
+                refs.clear()
+                gc.collect()
+                torch.cuda.empty_cache()
+                refs[ref_quant] = load_policy(root, MODEL, quantize=ref_quant, device="cuda")
+            ref_policy = refs[ref_quant]
             if kind == "serve":
                 h = run["health"]
                 log(f"tp: {label}: torchrun exit 0 in {run['seconds']:.1f} s (ranks' start and load included; "
@@ -2586,10 +2620,11 @@ def phase_tp(card: str, root: str) -> dict:
                     label, lambda c: ref_policy.decode(c["images"], c["tasks"]),
                     lambda c: ref_policy.decode(c["images"], c["tasks"], int4_kernel=False), calls)
             del ref_policy
-            gc.collect()
-            torch.cuda.empty_cache()
             out[label] = res
     finally:
+        refs.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
         shutil.rmtree(work, ignore_errors=True)
     log(f"tp: the phase took {time.perf_counter() - t_phase:.1f} s (the single-process references' loads and "
         f"decodes included)")
@@ -2698,27 +2733,94 @@ def tp_attack_inventory(log: list, cfg, tp: int, dp: int, rank: int, shard_proje
     return {"kinds": kinds, "bytes": nbytes, "seconds": seconds, "gather_max_bytes": gather_max}
 
 
-def tp_attack_want(cfg, dp: int, shard_projector: bool, objective: str) -> dict:
-    """The inventory tp_attack_inventory must find in one inner step: one
-    patch and one packed-sums all-reduce on the data group; on the model
-    group 5 [B_local, 288, 4096] sums a layer (o and down forward, the
-    gradients of the two copies before q/k/v and gate/up, and o's again in
-    the remat re-forward, which stops after down's product), the embed
-    lookup's and lm_head's input gradient ([B_local, 32, 4096]), and under
-    shard_projector fc2's sum (forward and re-forward) and fc1's input
-    gradient; a MAX and a SUM of row statistics per log-softmax or
-    expectation, one gather per argmax."""
-    b, d, p = ATTACK_BS // dp, cfg.llm.hidden_size, cfg.num_patches
-    per_layer = 5 if cfg.remat else 4
-    stats = 1 if objective == "tma" else 2
-    want = {"data: patch gradient": 1, "data: packed sums": 1,
-            f"model: sum {[b, p + PAD_TO, d]}": per_layer * cfg.llm.num_layers,
-            f"model: sum {[b, PAD_TO, d]}": 2, "model: row statistics MAX": stats,
-            "model: row statistics SUM": stats, "model: argmax pairs": 1}
-    if shard_projector:
-        want[f"model: sum {[b, p, d]}"] = 2 if cfg.remat else 1
-        want[f"model: sum {[b, p, cfg.vision_dim]}"] = 1
-    return want
+def inventory_rows(collectives) -> list:
+    """A collective log as sorted JSON rows [name, op, group ranks, shape,
+    dtype, count]: the multiset parallel/evidence.py's `inventory` makes."""
+    from roboticattack_torch.parallel.evidence import inventory
+
+    rows = json.loads(json.dumps([[*k, n] for k, n in inventory(collectives).items()]))
+    return sorted(rows, key=json.dumps)
+
+
+def audits_main(argv: list) -> int:
+    """`chip_smoke.py audits OUT` (Audits starts it, without the card): the
+    audit (parallel/evidence.py: meta tensors, a fake process group) of
+    each rank of TP_RUNS, its decode layout's leaves (rank_params), written
+    to OUT/decode.json; then of each rank and step of TP_ATTACK_RUNS, the
+    step's collectives and the rank's leaf bytes, to OUT/attack.json."""
+    from roboticattack_torch.parallel import evidence
+    from roboticattack_torch.parallel.mesh import ServingMesh
+
+    out_dir = argv[0]
+    cfg = get_config(MODEL)
+
+    def write(name, obj):
+        tmp = os.path.join(out_dir, name + ".json.tmp")
+        with open(tmp, "w") as f:
+            json.dump(obj, f)
+        os.replace(tmp, os.path.join(out_dir, name + ".json"))
+
+    t = time.perf_counter()
+    decode = {}
+    for label, _, nproc, flags, _ in TP_RUNS:
+        tp = int(flags[flags.index("--tp") + 1])
+        for r in range(nproc):
+            mesh = ServingMesh(tp=tp, dp=nproc // tp, rank=r, device=evidence.META)
+            params = evidence.rank_params(cfg, mesh, cooked=True, quantize=TP_QUANTIZE)
+            decode[f"{label}, rank {r}"] = {"param_bytes": sum(x.numel() * x.element_size() for x in params.values()),
+                                            "leaves": len(params)}
+    write("decode", {"ranks": decode, "seconds": time.perf_counter() - t})
+    t = time.perf_counter()
+    attack = {}
+    for label, nproc, tp, dp, sp in TP_ATTACK_RUNS:
+        for r in range(nproc):
+            for objective, maskidx in TP_ATTACK_STEPS:
+                a = evidence.audit_attack_step(cfg, dp, tp, r, batch_size=ATTACK_BS, pad_to=PAD_TO,
+                                               objective=objective, inner_loop=1, shard_projector=sp,
+                                               maskidx=maskidx, patch_hw=PATCH_HW, apply_update=False)
+                attack[f"{label}, rank {r}, {objective}"] = {
+                    "calls": inventory_rows(a.collectives),
+                    "param_bytes": evidence.memory_summary(a)["param_bytes"]}
+    write("attack", {"steps": attack, "seconds": time.perf_counter() - t})
+    return 0
+
+
+AUDIT_TIMEOUT_S = 600
+
+
+class Audits:
+    """`chip_smoke.py audits OUT` in a process of its own with no card
+    visible (CUDA_VISIBLE_DEVICES empty), started before phase_tp: the
+    audits of the tp and tp_attack ranks run on the host's cores while the
+    card runs the jobs they are held against. `result(name)` waits for
+    OUT/<name>.json; `close()` ends the process and removes OUT."""
+
+    def __init__(self) -> None:
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_audits_")
+        self.log_path = os.path.join(self.dir, "audits.log")
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        with open(self.log_path, "w") as out:
+            self.proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "audits", self.dir],
+                                         cwd=os.path.dirname(os.path.abspath(__file__)), stdout=out,
+                                         stderr=subprocess.STDOUT, env=env, start_new_session=True)
+        self.started = time.monotonic()
+
+    def result(self, name: str) -> dict:
+        path = os.path.join(self.dir, name + ".json")
+        while not os.path.exists(path):
+            failed = self.proc.poll() not in (None, 0)
+            if failed or time.monotonic() - self.started > AUDIT_TIMEOUT_S:
+                tail = open(self.log_path).read()[-3000:]
+                raise AssertionError(f"audits: no {name}.json (exit {self.proc.poll()})\n{tail}")
+            time.sleep(0.5)
+        with open(path) as f:
+            return json.load(f)
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        self.proc.wait()
+        shutil.rmtree(self.dir, ignore_errors=True)
 
 
 def tp_attack_rank_main(argv: list) -> int:
@@ -2758,7 +2860,8 @@ def tp_attack_rank_main(argv: list) -> int:
         dist.barrier()
     load_peak = torch.cuda.max_memory_allocated() / 2**30
     keeps = torch.cuda.memory_allocated() / 2**30
-    leaves_gib = sum(x.numel() * x.element_size() for _, x in tree_leaves(params)) / 2**30
+    leaves_bytes = sum(x.numel() * x.element_size() for _, x in tree_leaves(params))
+    leaves_gib = leaves_bytes / 2**30
     # the seeded draw of the largest stack: f32, then its bf16 cast, then the cut
     reckon = leaves_gib + max(sizes) * (4 + 2) / 2**30
     torch.cuda.reset_peak_memory_stats()
@@ -2767,10 +2870,12 @@ def tp_attack_rank_main(argv: list) -> int:
     step_peak = torch.cuda.max_memory_allocated() / 2**30
     torch.save([s.pop("grad") for s in steps], os.path.join(out_dir, f"grads_rank{rank}.pt"))
     for s in steps:
+        s["calls"] = inventory_rows(s["collectives"])
         s["inventory"] = tp_attack_inventory(s.pop("collectives"), cfg, tp, dp, rank, sp)
     out = {"rank": rank, "d": mesh.d, "m": mesh.m, "backend": distributed.current().backend,
            "device": str(mesh.device), "load_s": load_s, "load_peak_gib": load_peak, "keeps_gib": keeps,
-           "leaves_gib": leaves_gib, "reckon_peak_gib": reckon, "step_peak_gib": step_peak, "steps": steps,
+           "leaves_bytes": leaves_bytes, "leaves_gib": leaves_gib, "reckon_peak_gib": reckon,
+           "step_peak_gib": step_peak, "steps": steps,
            "seconds": time.perf_counter() - t_all}
     sys.stdout.write(f"tp-attack rank {rank}/{tp * dp}: {json.dumps(out)}\n")
     sys.stdout.flush()
@@ -2821,15 +2926,17 @@ def phase_flash_tp(bw: float, card: str) -> dict:
     return out
 
 
-def phase_tp_attack(card: str) -> dict:
+def phase_tp_attack(card: str, audits: Audits) -> dict:
     """The one-process reference and the TP_ATTACK_RUNS jobs and their
     checks: every rank exits 0; per step each rank's loss within
     TP_ATTACK_LOSS_RTOL of the one process's, its patch gradient's 1 -
     cosine to the f32 gradient of the same weights and step within
     TP_ATTACK_EXACT_FACTOR x the one process's bf16 gradient's, one patch
     SHA-256 across the job's ranks, 64 / 32 B1 / B2 launches (remat), the
-    collective inventory of tp_attack_want with every gather under 1 MB;
-    each rank's load and step peaks beside the reckoning from its leaves.
+    collectives it recorded equal, as a multiset, to the audit of the same
+    rank and step on meta (parallel/evidence.py, `audits`), every gather
+    under 1 MB, its leaves' bytes equal to the audit's; each rank's load
+    and step peaks beside the reckoning from its leaves.
     Logged beside them: the cosine to the one process's gradient, and the
     bytes and host seconds of each kind of collective."""
     t_phase = time.perf_counter()
@@ -2879,6 +2986,7 @@ def phase_tp_attack(card: str) -> dict:
             log(f"tp_attack: {label}: torchrun exit {rc} in {secs:.1f} s ({nproc} processes on one card over "
                 f"{ranks[0]['backend']}; process start, the leaf-by-leaf load and both steps) [{card}]")
             res = {"seconds": secs, "launches": {}, "rel": {}, "cos": {}, "cos_exact": {}, "ranks": {}}
+            audited = audits.result("attack")
             for r, v in sorted(ranks.items()):
                 grads = torch.load(os.path.join(out_dir, f"grads_rank{r}.pt"), weights_only=True)
                 log(f"tp_attack: {label}: rank {r} (d {v['d']}, m {v['m']}) on {v['device']}: load {v['load_s']:.1f} s, "
@@ -2886,15 +2994,25 @@ def phase_tp_attack(card: str) -> dict:
                     f"its slices {v['leaves_gib']:.2f} + the largest stack's f32 draw and bf16 cast = "
                     f"{v['reckon_peak_gib']:.2f}); step peak {v['step_peak_gib']:.2f} GiB; {v['seconds']:.1f} s "
                     f"in all [{card}]")
-                res["ranks"][r] = {k: v[k] for k in ("load_s", "load_peak_gib", "keeps_gib", "leaves_gib",
-                                                     "reckon_peak_gib", "step_peak_gib", "seconds")}
+                res["ranks"][r] = {k: v[k] for k in ("load_s", "load_peak_gib", "keeps_gib", "leaves_bytes",
+                                                     "leaves_gib", "reckon_peak_gib", "step_peak_gib", "seconds")}
                 for s, g, want, e in zip(v["steps"], grads, ref, exact):
+                    a = audited["steps"][f"{label}, rank {r}, {s['objective']}"]
+                    log(f"tp_attack: {label}: rank {r} {s['objective']}: {sum(n for *_, n in s['calls'])} "
+                        f"collectives recorded in {len(s['calls'])} kinds; the audit on meta (no card): equal as a "
+                        f"multiset: {s['calls'] == a['calls']}; leaves {v['leaves_bytes']} B, audited "
+                        f"{a['param_bytes']} B")
+                    if s["calls"] != a["calls"]:
+                        failed.append(f"{label} rank {r} {s['objective']}: collectives {s['calls']} != the "
+                                      f"audit's {a['calls']}")
+                    if v["leaves_bytes"] != a["param_bytes"]:
+                        failed.append(f"{label} rank {r}: leaves {v['leaves_bytes']} B != audited "
+                                      f"{a['param_bytes']} B")
                     rel = abs(s["loss"] - want["loss"]) / abs(want["loss"])
                     cos = F.cosine_similarity(g.flatten().double(), want["grad"].flatten().double(), dim=0).item()
                     cos_exact = F.cosine_similarity(g.flatten().double(), e["grad"].flatten().double(), dim=0).item()
                     bound = TP_ATTACK_EXACT_FACTOR * (1.0 - want["cos_exact"])
                     inv = s["inventory"]
-                    expect = tp_attack_want(cfg, dp, sp, s["objective"])
                     colls = ", ".join(f"{k}: {n} x {inv['bytes'][k]} B, {inv['seconds'][k]:.3f} s"
                                       for k, n in inv["kinds"].items())
                     log(f"tp_attack: {label}: rank {r} {s['objective']}: loss {s['loss']!r} (rel diff to one "
@@ -2909,8 +3027,8 @@ def phase_tp_attack(card: str) -> dict:
                                       f"f32 gradient {1.0 - cos_exact} > {bound}")
                     if s["launches"] != want_launches:
                         failed.append(f"{label} rank {r}: B1/B2 {s['launches']} != {want_launches}")
-                    if inv["kinds"] != expect or inv["gather_max_bytes"] >= MB:
-                        failed.append(f"{label} rank {r} {s['objective']}: collectives {inv} != {expect}")
+                    if inv["gather_max_bytes"] >= MB:
+                        failed.append(f"{label} rank {r} {s['objective']}: a gather of {inv['gather_max_bytes']} B")
                     res["launches"][f"rank {r}, {s['objective']}"] = s["launches"]
                     res["rel"][f"rank {r}, {s['objective']}"] = rel
                     res["cos"][f"rank {r}, {s['objective']}"] = cos
@@ -3109,7 +3227,8 @@ def train_then_attack(device: str) -> dict:
     """The JAX package's test_train_then_attack_flips_policy on the port:
     train VLA_TINY (fp32, no kernel: the kernels take bf16) on the
     brightness task, TMA-attack it toward the bright action on dark frames,
-    then run the patch through the eval paste and the decode policy."""
+    then run the patch through the eval paste and the decode policy; last,
+    int4 policies of it with int4_kernel unset."""
     cfg = get_config("vla-tiny")
     params = init_vla_params(torch.Generator(device=device).manual_seed(0), cfg)
     trainer = VLATrainer(params, cfg, TrainConfig(strategy="ddp", learning_rate=2e-3, max_steps=160,
@@ -3150,7 +3269,17 @@ def train_then_attack(device: str) -> dict:
         clean_xyz.append(policy.get_action(frame, "press the lever")[:6].mean())
         patched = apply_patch_to_frame(frame, patch_np, eval_cfg)
         patched_xyz.append(policy.get_action(patched, "press the lever")[:6].mean())
-    return {"final_loss": final_loss, "train_s": train_s,
+    # int4 with int4_kernel unset where the kernel cannot run: the f32 model,
+    # and the model in bf16 with groups of 16 (not 32 * 2^k)
+    bf16 = dataclasses.replace(cfg, dtype="bfloat16")
+    int4_default = {}
+    for label, c, tree, quantize in (
+            ("f32, int4", cfg, trained, "int4"),
+            ("bf16, int4:16", bf16, ((p, x.to(torch.bfloat16)) for p, x in tree_leaves(trained)), "int4:16")):
+        pol = VLAPolicy(tree, c, WordStubTokenizer(), stats, "synthetic", False, quantize=quantize, device=device)
+        int4_default[label] = {"int4_kernel": pol.int4_kernel,
+                               "action": pol.get_action(frame, "press the lever").tolist()}
+    return {"final_loss": final_loss, "train_s": train_s, "int4_default": int4_default,
             "baseline_success": m0["ex_success"].float().mean().item(),
             "clean_ce": m0["ex_ce"].float().mean().item(),
             "attacked_success": m1["ex_success"].float().mean().item(),
@@ -3163,7 +3292,10 @@ def check_train_then_attack(r: dict) -> None:
     dark frames are not already the bright action (< 0.3 success); the patch
     cuts the CE to a quarter and flips at least a quarter of the examples;
     through the eval paste and the decode, patched dark frames move the
-    mean xyz action up by more than 0.5 from clean ones (< -0.3)."""
+    mean xyz action up by more than 0.5 from clean ones (< -0.3). Also: the
+    int4 policies of the model that the CUDA kernel cannot take (f32; bf16
+    with groups of 16), with int4_kernel unset, run with it off and return
+    7 finite actions."""
     checks = {
         "final_loss < 0.5": r["final_loss"] < 0.5,
         "baseline_success < 0.3": r["baseline_success"] < 0.3,
@@ -3172,6 +3304,9 @@ def check_train_then_attack(r: dict) -> None:
                                                     and r["attacked_success"] > r["baseline_success"]),
         "clean_mean < -0.3": r["clean_mean"] < -0.3,
         "patched_mean > clean_mean + 0.5": r["patched_mean"] > r["clean_mean"] + 0.5,
+        "int4 policies the kernel cannot take: kernel off, 7 finite actions": all(
+            v["int4_kernel"] is False and len(v["action"]) == 7 and np.all(np.isfinite(v["action"]))
+            for v in r["int4_default"].values()),
     }
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
@@ -3344,29 +3479,38 @@ def main() -> int:
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_checkpoint")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
+    audits = None
     try:
-        ckpt = phase_checkpoint(card, root)
+        try:
+            ckpt = phase_checkpoint(card, root)
+            gc.collect()
+            torch.cuda.empty_cache()
+            ev = phase_eval(card, root)
+            gc.collect()
+            torch.cuda.empty_cache()
+            ver = phase_verify(card, root)
+            gc.collect()
+            torch.cuda.empty_cache()
+            audits = Audits()  # on the host's cores while the card runs the tp and tp_attack jobs
+            tpr = phase_tp(card, root, audits)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
-        ev = phase_eval(card, root)
+        rows_by_tp = {}
+        for run in tpr.values():
+            rows_by_tp[run["tp"]] = sorted(set(rows_by_tp.get(run["tp"], [])) | set(run["rows"]))
+        tp_rows = phase_kernels_tp(bw, rows_by_tp)
+        ddp = phase_ddp(card)
         gc.collect()
         torch.cuda.empty_cache()
-        ver = phase_verify(card, root)
-        gc.collect()
-        torch.cuda.empty_cache()
-        tpr = phase_tp(card, root)
+        tpa = phase_tp_attack(card, audits)
+        log(f"audits: the tp ranks' decode layouts in {audits.result('decode')['seconds']:.1f} s, the tp_attack "
+            f"ranks' steps in {audits.result('attack')['seconds']:.1f} s (meta tensors, a fake process group, "
+            f"no card; a process of their own beside the jobs)")
     finally:
-        shutil.rmtree(root, ignore_errors=True)
-    gc.collect()
-    torch.cuda.empty_cache()
-    rows_by_tp = {}
-    for run in tpr.values():
-        rows_by_tp[run["tp"]] = sorted(set(rows_by_tp.get(run["tp"], [])) | set(run["rows"]))
-    tp_rows = phase_kernels_tp(bw, rows_by_tp)
-    ddp = phase_ddp(card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    tpa = phase_tp_attack(card)
+        if audits is not None:
+            audits.close()
     flash_tp = phase_flash_tp(bw, card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3480,6 +3624,8 @@ if __name__ == "__main__":
         sys.exit(train_rank_main(sys.argv[2:]))
     if sys.argv[1:2] == ["tp-attack-rank"]:  # one rank of a phase_tp_attack job
         sys.exit(tp_attack_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["audits"]:  # the tp and tp_attack ranks' audits, without the card (Audits)
+        sys.exit(audits_main(sys.argv[2:]))
     try:
         rc = main()
     except Exception:

@@ -33,6 +33,7 @@ from ..models.decode import (
     unnormalize_actions,
 )
 from ..models.vlm import VLA
+from ..ops.q4_matmul import KERNEL_GROUP_SIZES
 from ..utils.constants import ACTION_DIM, PAD_TOKEN_ID
 from ..utils.device import resolve_device
 from ..utils.normalization import dual_normalize
@@ -81,8 +82,12 @@ class VLAPolicy:
         LLM stack + lm_head/embed (models/quant.py); `'w8a8'`: int8 weights
         plus per-token int8 activations in the prefill's projections (the
         tail stays weight-only). `int4_kernel=None` resolves to "int4
-        weights and a CUDA device": the decode tail's projections then run
-        the CUDA dequant-matmul kernel.
+        weights, a CUDA device, a bf16 model and a group of 32 * 2^k
+        channels (ops.q4_matmul.KERNEL_GROUP_SIZES)": the decode tail's
+        projections then run the CUDA dequant-matmul kernel, and anywhere
+        else the decode's own int4 branch, as the JAX package's default
+        does where its kernel is not engaged. An explicit True that the
+        kernel cannot take raises ValueError before any weight moves.
 
         `kv_cache='int8'|'int4'` and `visual_tokens=k` reach every decode
         (models/decode.py greedy_decode_actions). `center_crop=True` crops
@@ -107,12 +112,11 @@ class VLAPolicy:
         if kv_cache not in KV_CACHE_MODES:
             raise ValueError(f"kv_cache={kv_cache!r}; supported: None, 'int8', 'int4'")
         self.kv_cache, self.visual_tokens, self.act_quant = kv_cache, visual_tokens, act_quant
-        if int4_kernel is None:
-            int4_kernel = quant_mode == "int4" and self.device.type == "cuda"
+        if int4_kernel is None:  # the kernel where it can run; elsewhere the decode's own int4 branch
+            int4_kernel = (quant_mode == "int4" and self.device.type == "cuda"
+                           and torch_dtype(cfg) == torch.bfloat16 and quant_gs in KERNEL_GROUP_SIZES)
         self.int4_kernel = bool(int4_kernel)
         if self.int4_kernel and quant_mode == "int4" and self.device.type == "cuda":
-            from ..ops.q4_matmul import KERNEL_GROUP_SIZES
-
             if torch_dtype(cfg) != torch.bfloat16:
                 raise ValueError(
                     f"the CUDA int4 kernel takes bf16 activations and {cfg.name!r} "

@@ -489,8 +489,9 @@ def greedy_decode_actions(
                 f"{(b, num_steps)} (one draft token per decode position)"
             )
         # an id past the embedding is an out-of-bounds gather on the card (a
-        # device-side assert that poisons the context); JAX's gather clamps
-        if bool(((draft_tokens < 0) | (draft_tokens >= lcfg.vocab_size)).any()):
+        # device-side assert that poisons the context); JAX's gather clamps.
+        # A meta draft (the audit, parallel/evidence.py) has no ids to check.
+        if not draft_tokens.is_meta and bool(((draft_tokens < 0) | (draft_tokens >= lcfg.vocab_size)).any()):
             raise ValueError(f"draft_tokens hold ids outside [0, {lcfg.vocab_size})")
     q4k = bool(int4_kernel) and packed4
     gw = tuple(layers["gate_w"].shape[-2:])
@@ -594,7 +595,9 @@ def greedy_decode_actions(
             # the prefill argmax
             new_d = torch.cat([d[:, :1], out[:, :-1]], dim=1)
             passes += 1
-            changed = bool((new_d != d).any())  # the pass's one host sync
+            # the pass's one host sync; on meta every pass runs, up to the
+            # n - 1 bound, as JAX's while_loop program
+            changed = True if new_d.is_meta else bool((new_d != d).any())
             if mesh is not None:  # any row of the global batch, as JAX's one program
                 changed = mesh.any_rank(changed)
             d = new_d

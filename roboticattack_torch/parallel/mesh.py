@@ -18,8 +18,9 @@ decoder's weights (parallel/sharding.py `shard_params`) and the forward and
 backward call the Megatron collectives of parallel/tensor_parallel.py on
 the model group. GSPMD inserts both in JAX; here they are explicit.
 
-Serving (`make_serving_mesh`) builds the same grid (`_grid`); `ServingMesh`
-carries the decode's collectives. Both axes' model-group sums and maxima go
+Serving (`make_serving_mesh`) builds the same grid (`grid_mesh`, which the
+audit of parallel/evidence.py builds too); `ServingMesh` carries the
+decode's collectives. Both axes' model-group sums and maxima go
 through `model_all_reduce`.
 """
 
@@ -74,7 +75,7 @@ def make_mesh(data=None, model: int = 1, device: str = "cuda") -> DataMesh:
         size = dist.get_world_size()
         if data is not None and data != size:
             raise ValueError(f"make_mesh(data={data}) over a process group of {size} ranks")
-        return DataMesh(group=dist.group.WORLD, rank=dist.get_rank(), size=size, device=info.device)
+        return world_mesh(info.device)
     dp = _world() // model if data is None else data
     return _grid(dp, model, device, f"make_mesh(data={data}, model={model}) needs a world of data x model processes")
 
@@ -94,10 +95,26 @@ def _grid(dp: int, tp: int, device: str, asked: str) -> DataMesh:
     if dp * tp != have:
         raise ValueError(f"{asked}; this one has {have}. Launch it with `torchrun --nproc_per_node {need}`")
     info = distributed.current() or distributed.initialize_multihost(device=device)
+    return grid_mesh(dp, tp, info.device)
+
+
+def world_mesh(device) -> DataMesh:
+    """A data axis over the whole initialized process group and no model
+    axis: make_mesh(model=1)'s grid."""
+    return DataMesh(group=dist.group.WORLD, rank=dist.get_rank(), size=dist.get_world_size(),
+                    device=torch.device(device))
+
+
+def grid_mesh(dp: int, tp: int, device) -> DataMesh:
+    """This rank's place in the dp x tp grid over the initialized process
+    group of dp * tp ranks (rank = d * tp + m): creates every model group,
+    then every data group, on every rank in the same order
+    (dist.new_group). The one layout of make_mesh, make_serving_mesh and
+    the audit (parallel/evidence.py)."""
     rank = dist.get_rank()
     model_groups = [dist.new_group([d * tp + m for m in range(tp)]) for d in range(dp)]
     data_groups = [dist.new_group([d * tp + m for d in range(dp)]) for m in range(tp)]
-    return DataMesh(group=data_groups[rank % tp], rank=rank // tp, size=dp, device=info.device,
+    return DataMesh(group=data_groups[rank % tp], rank=rank // tp, size=dp, device=torch.device(device),
                     model_group=model_groups[rank // tp], m=rank % tp, tp=tp)
 
 
@@ -158,12 +175,14 @@ class ServingMesh(NamedTuple):
 
     def any_rank(self, flag: bool) -> bool:
         """True iff `flag` is true on any rank of the world (a MAX
-        all-reduce; every rank must call it)."""
+        all-reduce; every rank must call it). On the meta device (the
+        audit, parallel/evidence.py) the all-reduce is issued and there is
+        nothing to read: True."""
         if self.world == 1:
             return bool(flag)
         t = torch.tensor([int(flag)], dtype=torch.int32, device=self.device)
         dist.all_reduce(t, op=dist.ReduceOp.MAX)
-        return bool(t.item())
+        return True if t.is_meta else bool(t.item())
 
 
 def _env_world() -> int:
@@ -181,8 +200,12 @@ def make_serving_mesh(tp: int = 1, dp: int = 1, device: str = "cuda") -> Optiona
         raise ValueError(f"--tp {tp} / --dp {dp}: both must be >= 1")
     if tp == 1 and dp == 1:
         return None
-    grid = _grid(dp, tp, device, f"--dp {dp} x --tp {tp} needs a world of {dp * tp} processes")
-    return ServingMesh(tp=tp, dp=dp, rank=grid.d * tp + grid.m, device=grid.device,
+    return serving_mesh(_grid(dp, tp, device, f"--dp {dp} x --tp {tp} needs a world of {dp * tp} processes"))
+
+
+def serving_mesh(grid: DataMesh) -> ServingMesh:
+    """The ServingMesh of a grid_mesh: the same rank's place and groups."""
+    return ServingMesh(tp=grid.tp, dp=grid.dp, rank=grid.d * grid.tp + grid.m, device=grid.device,
                        model_group=grid.model_group, dp_group=grid.group)
 
 

@@ -2,7 +2,7 @@
 `utils/profiling.py`). `maybe_trace` records a block with torch.profiler
 into one Chrome trace per rank; StepTimer's caller ends each timed step with
 a device synchronize; `counting_collectives` records each collective a block
-makes, with its bytes and host seconds."""
+makes, with its bytes and host seconds (parallel/evidence.py's inventory)."""
 
 from __future__ import annotations
 
@@ -65,44 +65,74 @@ class StepTimer:
         }
 
 
+# the collectives the port calls, recorded with their tensor
+COUNTED = ("all_reduce", "all_gather", "broadcast")
+# every other collective of torch.distributed: recorded by name, or refused
+OTHER_COLLECTIVES = (
+    "all_gather_into_tensor", "all_gather_object", "all_to_all", "all_to_all_single", "barrier",
+    "batch_isend_irecv", "broadcast_object_list", "gather", "gather_object", "irecv", "isend",
+    "monitored_barrier", "recv", "reduce", "reduce_scatter", "reduce_scatter_tensor", "scatter",
+    "scatter_object_list", "send",
+)
+
+
 class Collective(NamedTuple):
     """One collective call of this process."""
 
-    name: str  # all_reduce, all_gather or broadcast
+    name: str  # the torch.distributed function: all_reduce, all_gather, broadcast, or another
     op: Optional[str]  # an all_reduce's op (SUM, MAX, ...), else None
     ranks: Any  # the group's ranks (a tuple), or "world" without a group
-    shape: tuple  # the tensor this rank gives
+    shape: tuple  # the tensor this rank gives (another collective's first tensor argument, or ())
     dtype: str
     nbytes: int  # of that tensor
     seconds: float  # host clock around the call; a CUDA tensor's card synchronized before and after
 
 
+def _given_tensor(name: str, a: tuple, k: dict):
+    """The tensor this rank gives to collective `name`: all_gather's second
+    argument, else the first tensor among the arguments (or in a list of
+    them), or None."""
+    import torch
+
+    if name == "all_gather":
+        return a[1]
+    for x in list(a) + list(k.values()):
+        for t in (x if isinstance(x, (list, tuple)) else [x]):
+            if isinstance(t, torch.Tensor):
+                return t
+    return None
+
+
 @contextlib.contextmanager
 def counting_collectives(log: list) -> Iterator[list]:
-    """Append a Collective to `log` for every dist.all_reduce / all_gather
-    / broadcast this process makes while the block runs. The functions are
-    replaced on torch.distributed for the block, so every caller that looks
-    them up at call time is seen. A CUDA tensor's card is synchronized
-    before the call, so its seconds leave out the work queued before it."""
+    """Append a Collective to `log` for every collective of torch.distributed
+    this process makes while the block runs: dist.all_reduce / all_gather /
+    broadcast (COUNTED) with their tensor, any of OTHER_COLLECTIVES by name
+    (with its first tensor argument, if any). The functions are replaced
+    on torch.distributed for the block, so every caller that looks them up
+    at call time is seen. A CUDA tensor's card is synchronized before the
+    call, so its seconds leave out the work queued before it."""
     import torch
     import torch.distributed as dist
 
-    saved = {n: getattr(dist, n) for n in ("all_reduce", "all_gather", "broadcast")}
+    saved = {n: getattr(dist, n) for n in COUNTED + OTHER_COLLECTIVES if hasattr(dist, n)}
 
     def wrap(name):
         def call(*a, **k):
-            t = a[1] if name == "all_gather" else a[0]
+            t = _given_tensor(name, a, k)
             group = k.get("group")
             ranks = tuple(dist.get_process_group_ranks(group)) if group is not None else "world"
             op = str(k.get("op", dist.ReduceOp.SUM)).split(".")[-1] if name == "all_reduce" else None
-            if t.is_cuda:
+            cuda = t is not None and t.is_cuda
+            if cuda:
                 torch.cuda.synchronize(t.device)
             start = time.perf_counter()
             out = saved[name](*a, **k)
-            if t.is_cuda:
+            if cuda:
                 torch.cuda.synchronize(t.device)
-            log.append(Collective(name, op, ranks, tuple(t.shape), str(t.dtype), t.numel() * t.element_size(),
-                                  time.perf_counter() - start))
+            shape, dtype, nbytes = ((), "", 0) if t is None else \
+                (tuple(t.shape), str(t.dtype), t.numel() * t.element_size())
+            log.append(Collective(name, op, ranks, shape, dtype, nbytes, time.perf_counter() - start))
             return out
         return call
 

@@ -74,11 +74,12 @@ def add_int4_kernel_flag(parser) -> None:
     """The `--int4_kernel` flag of the serving CLI: auto|on|off ->
     resolve_int4_kernel maps to VLAPolicy's int4_kernel param (None = auto:
     route the int4 decode tail through the CUDA dequant-matmul kernel,
-    ops/q4_matmul.py, when the policy runs on a CUDA device)."""
+    ops/q4_matmul.py, when the policy runs on a CUDA device in bf16 with a
+    group the kernel takes; the decode's own int4 branch otherwise)."""
     parser.add_argument(
         "--int4_kernel", default="auto", choices=["auto", "on", "off"],
         help="CUDA int4 dequant-matmul decode tail "
-             "(auto = int4 weights on a CUDA device)",
+             "(auto = int4 weights on a CUDA device, a bf16 model and a group the kernel takes)",
     )
 
 

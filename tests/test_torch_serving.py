@@ -123,37 +123,43 @@ def test_entry_points_raise_without_cuda(monkeypatch, jax_params):
     assert pol.device.type == "cpu" and not pol.int4_kernel
 
 
-def test_int4_kernel_on_cuda_refuses_a_float32_model(monkeypatch, jax_params):
-    """The CUDA kernel takes bf16 activations: an f32 model (vla-tiny) with
-    the kernel on, explicitly or by the CUDA default, is refused before any
-    weight moves, not run some other way."""
-    monkeypatch.setattr(tpolicy.torch.cuda, "is_available", lambda: True)
-    for kernel in (None, True):
-        with pytest.raises(ValueError, match="int4_kernel=False"):
-            VLAPolicy(params_from_jax(jax_params, "cpu", T_TINY), T_TINY,
-                      WordStubTokenizer(), STATS, quantize="int4",
-                      int4_kernel=kernel, device="cuda")
-
-
-def test_int4_kernel_on_cuda_refuses_a_group_the_kernel_cannot_take(monkeypatch, jax_params):
-    """The CUDA kernel takes groups of 32 * 2^k channels (k <= 5): a bf16
-    model quantized with groups of 16 and the kernel on, explicitly or by the
-    CUDA default, is refused at construction, before any weight moves (not
-    at the first tail launch, after the prefill). The model's own group, 64,
-    passes the same check and constructs."""
-    bf16 = dataclasses.replace(T_TINY, dtype="bfloat16")
+def _kept_on_the_cpu(monkeypatch):
+    """CUDA reported present, the weights' move to it recorded and left on
+    the CPU: the list of devices the policy moved weights to."""
     moved = []
 
-    def to_device(tree, device):  # keeps the weights on the CPU, records the move
+    def to_device(tree, device):
         moved.append(device)
         return tree
 
     monkeypatch.setattr(tpolicy.torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(tpolicy, "_to_device", to_device)
-    for kernel in (None, True):
-        with pytest.raises(ValueError, match="int4_kernel=False"):
-            VLAPolicy(params_from_jax(jax_params, "cpu", bf16), bf16, WordStubTokenizer(), STATS,
-                      quantize="int4:16", int4_kernel=kernel, device="cuda")
+    return moved
+
+
+def test_int4_kernel_on_cuda_refuses_a_float32_model(monkeypatch, jax_params):
+    """The CUDA kernel takes bf16 activations: an f32 model (vla-tiny) with
+    the kernel asked for is refused before any weight moves, not run some
+    other way."""
+    moved = _kept_on_the_cpu(monkeypatch)
+    with pytest.raises(ValueError, match="int4_kernel=False"):
+        VLAPolicy(params_from_jax(jax_params, "cpu", T_TINY), T_TINY,
+                  WordStubTokenizer(), STATS, quantize="int4",
+                  int4_kernel=True, device="cuda")
+    assert moved == []
+
+
+def test_int4_kernel_on_cuda_refuses_a_group_the_kernel_cannot_take(monkeypatch, jax_params):
+    """The CUDA kernel takes groups of 32 * 2^k channels (k <= 5): a bf16
+    model quantized with groups of 16 and the kernel asked for is refused at
+    construction, before any weight moves (not at the first tail launch,
+    after the prefill). The model's own group, 64, passes the same check and
+    constructs, with the kernel on by default too."""
+    bf16 = dataclasses.replace(T_TINY, dtype="bfloat16")
+    moved = _kept_on_the_cpu(monkeypatch)
+    with pytest.raises(ValueError, match="int4_kernel=False"):
+        VLAPolicy(params_from_jax(jax_params, "cpu", bf16), bf16, WordStubTokenizer(), STATS,
+                  quantize="int4:16", int4_kernel=True, device="cuda")
     assert moved == []
     for quantize in ("int4", "int4:64"):
         pol = VLAPolicy(params_from_jax(jax_params, "cpu", bf16), bf16, WordStubTokenizer(), STATS,
@@ -163,6 +169,22 @@ def test_int4_kernel_on_cuda_refuses_a_group_the_kernel_cannot_take(monkeypatch,
     pol = VLAPolicy(params_from_jax(jax_params, "cpu", bf16), bf16, WordStubTokenizer(), STATS,
                     quantize="int4:64", int4_kernel=True, device="cpu")
     assert pol.int4_kernel
+
+
+@pytest.mark.parametrize("dtype,quantize", [("float32", "int4"), ("bfloat16", "int4:16")],
+                         ids=["f32-int4", "bf16-int4:16"])
+def test_int4_kernel_by_default_on_cuda_leaves_a_model_it_cannot_take_to_the_int4_branch(
+        monkeypatch, jax_params, dtype, quantize):
+    """With int4_kernel unset, a CUDA policy the kernel cannot take (an f32
+    model, or groups of 16) constructs with the kernel off, so that its
+    decodes take the decode's own int4 branch, and its weights move: the
+    JAX package's default serves both where its kernel is not engaged."""
+    cfg = dataclasses.replace(T_TINY, dtype=dtype)
+    moved = _kept_on_the_cpu(monkeypatch)
+    pol = VLAPolicy(params_from_jax(jax_params, "cpu", cfg), cfg, WordStubTokenizer(), STATS,
+                    quantize=quantize, device="cuda")
+    assert pol.int4_kernel is False and pol.device.type == "cuda"
+    assert [d.type for d in moved] == ["cuda"]
 
 
 def test_cpu_int4_policy_launches_no_kernel():

@@ -24,7 +24,9 @@ VLA_TINY in fp32 with the random draws of the JAX key replayed.
 - the vocab-parallel reductions against whole rows, and the row-parallel
   sum and copy_to_model's gradient sum in bf16, on two threaded ranks;
 - make_mesh's layout and errors, the leaf-by-leaf cut against JAX's
-  `vla_param_specs`, and the refusals of a whole tree on a rank."""
+  `vla_param_specs`, and the refusals of a whole tree on a rank;
+- parallel/evidence.py's audit (meta tensors, a fake process group) of
+  every step case on every rank: the collectives the gloo rank recorded."""
 
 import dataclasses
 
@@ -324,6 +326,24 @@ def test_collectives_of_an_inner_step(runs, name):
         want[f"activation {cfg.num_patches}"] = n * (2 if cfg.remat else 1)
         want[f"features {cfg.num_patches}"] = n
     assert _inventory(name, _ranks_of(runs, name)[0]["collectives"], tp, dp, cfg) == want
+
+
+@pytest.mark.parametrize("name", list(STEPS))
+def test_audit_inventory_equals_the_ranks_collectives(runs, name):
+    """parallel/evidence.py's audit of each rank's step, on meta under a
+    fake process group of the layout, issues the collectives the gloo rank
+    recorded (as a multiset of name, op, group ranks, shape and dtype), on
+    every rank of tp 2 and dp 2 x tp 2: the audit that vouches for the 7B
+    layout runs the same code as the ranks do."""
+    from roboticattack_torch.parallel.evidence import audit_attack_step, inventory
+
+    (tp, dp), sp, spec, maskidx, cfg, *_ = STEPS[name]
+    for r, out in enumerate(_ranks_of(runs, name)):
+        audit = audit_attack_step(cfg, dp, tp, r, batch_size=B, pad_to=48, objective=spec["objective"],
+                                  inner_loop=spec["inner_loop"], shard_projector=sp, maskidx=maskidx,
+                                  patch_hw=PATCH_HW)
+        assert inventory(audit.collectives) == inventory(out["collectives"]), (name, r)
+        assert not torch.distributed.is_initialized()
 
 
 def test_flash_on_local_heads_equals_jax_under_a_model_axis():

@@ -13,6 +13,9 @@ package's mesh decode on VLA_TINY (fp32).
 - the traffic of a decode: two sums a layer over the tensor-parallel group,
   one logits gather a token, one MAX over the world a Jacobi pass, the w8a8
   prefill's two absmax MAX a layer, nothing else;
+- parallel/evidence.py's audit (meta tensors, a fake process group) of
+  the fp32, int4, w8a8 and Jacobi decodes on every rank: the collectives
+  the gloo rank recorded;
 - the errors of JAX's decode, raised from the sizes without any process;
 - VLAPolicy(mesh=...) and the rank-0 front end: a batch dp divides and one
   it does not (served replicated, one warning) equal one process's actions;
@@ -352,6 +355,33 @@ def test_decode_traffic(served, name, tp, dp):
             assert {c[4] for c in sums} == {"torch.float32"}
         gathers = [c for c in log if c[0] == "all_gather"]
         assert all(c[3][-1] == VLA_TINY.llm.vocab_size // tp and c[4] == "torch.float32" for c in gathers)
+
+
+AUDITED = {"fp32": {}, "int4": {"quantize": f"int4:{GS_TP2}"},
+           "w8a8": {"quantize": "int8", "act_quant": "int8"}, "jacobi": {"jacobi": True}}
+
+
+@pytest.mark.parametrize("tp,dp", LAYOUTS, ids=["tp2", "dp2xtp2"])
+@pytest.mark.parametrize("name", list(AUDITED))
+def test_audit_inventory_equals_the_ranks_collectives(served, name, tp, dp):
+    """parallel/evidence.py's audit of each rank's decode, on meta under a
+    fake process group of the layout, issues the collectives the gloo rank
+    recorded (as a multiset of name, op, group ranks, shape and dtype). The
+    Jacobi audit runs all n - 1 passes (a meta draft has nothing to
+    compare): the rank's log equals the audit's up to the end of the pass
+    the rank's draft converged in."""
+    from roboticattack_torch.parallel.evidence import audit_decode, inventory
+
+    ids, _, _ = _prompt(batch=B, seed=1)
+    for r, rk in enumerate(served["ranks"][(tp, dp)]):
+        got = rk["decode"][name]
+        audit = audit_decode(VLA_TINY, dp, tp, r, batch_size=B, prompt_pad=ids.shape[1], **AUDITED[name])
+        want = audit.collectives
+        if name == "jacobi":
+            flags = [i for i, c in enumerate(want) if c.op == "MAX" and c.ranks == "world"]
+            assert len(flags) == 6
+            want = want[:flags[got["result"].verify_passes - 1] + 1]
+        assert inventory(want) == inventory(got["collectives"]), (name, r)
 
 
 def test_decode_errors_raise_from_the_sizes(served):

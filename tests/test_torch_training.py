@@ -47,6 +47,7 @@ from roboticattack_torch.models.bridge import params_from_jax
 from roboticattack_torch.models.config import VLA_TINY
 from roboticattack_torch.models.param_tree import tree_from_leaves, tree_leaves
 from roboticattack_torch.models.vlm import init_vla_params
+from roboticattack_torch.parallel import distributed
 from roboticattack_torch.parallel.mesh import DataMesh
 from roboticattack_torch.training import (
     Overwatch,
@@ -73,6 +74,15 @@ CASES = {
     "freeze_vision": dict(freeze_vision_backbone=True),
     "freeze_llm": dict(freeze_llm_backbone=True),
 }
+
+
+@pytest.fixture(autouse=True)
+def leave_no_process_group():
+    """A VLATrainer without a mesh joins a world of one in this process
+    (make_mesh); leave it after each test, so later tests in the worker
+    start outside any group."""
+    yield
+    distributed.shutdown()
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -319,7 +329,8 @@ def test_chip_smoke_train_phase_on_the_cpu(monkeypatch):
         monkeypatch.setattr(torch.cuda, name, lambda *a, _v=value, **k: _v)
     monkeypatch.setattr(chip_smoke, "device_profile", lambda run, *a, **k: run() or {"busy": "not measured"})
     tiny_result = {"final_loss": 0.1, "train_s": 1.0, "baseline_success": 0.0, "clean_ce": 4.0,
-                   "attacked_success": 0.5, "attacked_ce": 0.5, "clean_mean": -0.8, "patched_mean": 0.1}
+                   "attacked_success": 0.5, "attacked_ce": 0.5, "clean_mean": -0.8, "patched_mean": 0.1,
+                   "int4_default": {"f32, int4": {"int4_kernel": False, "action": [0.0] * 7}}}
     monkeypatch.setattr(chip_smoke, "train_then_attack", lambda device: tiny_result)
 
     def two_ranks(nproc):

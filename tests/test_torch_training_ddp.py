@@ -30,12 +30,22 @@ from roboticattack_tpu.utils.prompting import WordStubTokenizer as JaxStub
 from roboticattack_torch.models.bridge import params_from_jax
 from roboticattack_torch.models.config import VLA_TINY
 from roboticattack_torch.models.param_tree import tree_leaves
+from roboticattack_torch.parallel import distributed
 from roboticattack_torch.training import TrainConfig, VLATrainer
 from torch_ddp_workers import start_ranks, train_rank, wait_ranks
 
 RTOL, ATOL = 1e-5, 1e-5
 STEPS = 4
 TRAIN = dict(learning_rate=5e-3, weight_decay=0.1, warmup_ratio=0.34, max_grad_norm=0.05, max_steps=STEPS)
+
+
+@pytest.fixture(autouse=True)
+def leave_no_process_group():
+    """A VLATrainer without a mesh joins a world of one in this process
+    (make_mesh); leave it after each test, so later tests in the worker
+    start outside any group."""
+    yield
+    distributed.shutdown()
 
 
 @pytest.fixture(scope="module")
