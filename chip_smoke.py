@@ -211,6 +211,7 @@ from roboticattack_torch.utils.profiling import counting_collectives
 from roboticattack_torch.utils.labels import build_tma_target_tokens
 from roboticattack_torch.utils.normalization import dual_normalize
 from roboticattack_torch.utils.prompting import WordStubTokenizer, build_vla_example
+from vlabench.common.trace import reduce_events
 
 MODEL = "openvla-7b"
 SEED = 0
@@ -596,34 +597,21 @@ def device_profile(run, wall_ms: float, label: str, card: str, match=(), top: in
     run()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
-    # device activity only (kernels, copies); CPU ops and runtime markers
-    # such as "Command Buffer Full" are not device work
-    kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.name.startswith("Command Buffer")]
-    if not kern:
+    # the benchmark's reduction: device work only, without the spans' shadows
+    # on the device timeline (user annotations) or runtime markers
+    try:
+        trace = reduce_events(prof.events(), wall_ms / 1e3)
+    except RuntimeError:  # no device activity recorded
         log(f"{label}: device busy share: not measured (the profiler recorded no device time)")
         return {m: "not measured" for m in (*match, "busy")}
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
-    busy_us, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for a, b in spans[1:]:
-        if a > cur_e:
-            busy_us += cur_e - cur_s
-            cur_s, cur_e = a, b
-        else:
-            cur_e = max(cur_e, b)
-    busy_us += cur_e - cur_s
-    by_name = {}
-    for e in kern:
-        n, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
-    found = {m: sum(t for name, (_, t) in by_name.items() if m in name) / 1e3 for m in match}
-    log(f"{label}: device busy {busy_us / 1e3:.2f} ms of {wall_ms:.2f} ms wall (unprofiled) -> "
-        f"device busy share {busy_us / 1e3 / wall_ms:.3f}; "
+    busy_ms = trace.busy_s * 1e3
+    found = {m: sum(t for name, (_, t) in trace.by_name.items() if m in name) * 1e3 for m in match}
+    log(f"{label}: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall (unprofiled) -> "
+        f"device busy share {busy_ms / wall_ms:.3f}; "
         + "; ".join(f"{m} kernels {v:.2f} ms" for m, v in found.items()) + f" [{card}]")
-    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
-        log(f"{label}:   device {t / 1e3:8.3f} ms  x{n:<6d} {name[:100]}")
-    return dict(found, busy=busy_us / 1e3)
+    for name, (n, t) in sorted(trace.by_name.items(), key=lambda kv: -kv[1][1])[:top]:
+        log(f"{label}:   device {t * 1e3:8.3f} ms  x{n:<6d} {name[:100]}")
+    return dict(found, busy=busy_ms)
 
 
 def device_breakdown(policy, frames, tasks, num_steps: int, wall_ms: float, card: str,

@@ -45,6 +45,7 @@ from ..utils.action_tokenizer import decode_tokens
 from ..utils.constants import ACTION_TOKEN_ZERO
 from ..utils.labels import change_target, draw_coin, mask_labels, overwrite_with_target
 from ..utils.normalization import dual_normalize
+from ..utils.profiling import outer_step, span
 from .losses import (
     action_preds_and_mask,
     clip_grad_l1,
@@ -171,15 +172,20 @@ def patch_loss_and_grad(spec: AttackSpec, cfg: VLAConfig, params: Dict, patch: t
     reduce = mesh_reducer(mesh)
     patch = patch.detach().requires_grad_(True)
     with torch.enable_grad():
-        patched = apply_patch_batch(batch.images, patch, draws, geometry=spec.geometry,
-                                    resize_patch=spec.resize_patch)
-        pixels = dual_normalize(patched).to(torch_dtype(cfg))
-        # the CE comes from the objective's sums, not out.loss
-        out = vla_forward(params, cfg, batch.input_ids, batch.attention_mask, pixels, None, mesh=mesh)
-        loss, metrics, _ = _objective_loss(spec, cfg, out.logits, labels, reduce, mesh=mesh)
-        if spec.objective == "tma":
-            loss = loss / spec.accumulate_steps
-        (grad,) = torch.autograd.grad(loss, patch)
+        with span("attack.patch"):
+            patched = apply_patch_batch(batch.images, patch, draws, geometry=spec.geometry,
+                                        resize_patch=spec.resize_patch)
+            pixels = dual_normalize(patched).to(torch_dtype(cfg))
+        with span("attack.forward"):
+            # the CE comes from the objective's sums, not out.loss
+            out = vla_forward(params, cfg, batch.input_ids, batch.attention_mask, pixels, None, mesh=mesh)
+        with span("attack.objective"):
+            loss, metrics, _ = _objective_loss(spec, cfg, out.logits, labels, reduce, mesh=mesh)
+            if spec.objective == "tma":
+                loss = loss / spec.accumulate_steps
+        # the checkpointed blocks recompute in here, on the autograd engine's thread on CUDA
+        with span("attack.backward", backward=True):
+            (grad,) = torch.autograd.grad(loss, patch)
     if mesh is not None:
         grad = all_reduce_sum(grad, mesh)
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grad
@@ -189,15 +195,16 @@ def update_patch(spec: AttackSpec, state: AttackState, grad: torch.Tensor, lr) -
     """The patch update of a (summed or reduced) gradient: the L1 clip,
     AdamW or PGD, the clamp to [0, 1] and an emptied accumulation buffer.
     Returns the new state and the gradient the optimizer took."""
-    if spec.grad_clip_l1 is not None:
-        grad = clip_grad_l1(grad, spec.grad_clip_l1)
-    if spec.optimizer == "adamW":
-        new_patch, opt = adamw_update(grad, state.opt, state.patch, lr)
-    elif spec.optimizer == "pgd":
-        new_patch, opt = pgd_update(grad, state.patch, spec.pgd_alpha), state.opt
-    else:
-        raise ValueError(f"unknown optimizer {spec.optimizer}")
-    return AttackState(patch=new_patch.clamp(0.0, 1.0), opt=opt, grad_acc=torch.zeros_like(grad)), grad
+    with span("attack.update"):
+        if spec.grad_clip_l1 is not None:
+            grad = clip_grad_l1(grad, spec.grad_clip_l1)
+        if spec.optimizer == "adamW":
+            new_patch, opt = adamw_update(grad, state.opt, state.patch, lr)
+        elif spec.optimizer == "pgd":
+            new_patch, opt = pgd_update(grad, state.patch, spec.pgd_alpha), state.opt
+        else:
+            raise ValueError(f"unknown optimizer {spec.optimizer}")
+        return AttackState(patch=new_patch.clamp(0.0, 1.0), opt=opt, grad_acc=torch.zeros_like(grad)), grad
 
 
 def _inner_step(spec: AttackSpec, cfg: VLAConfig, params: Dict, state: AttackState,
@@ -235,14 +242,16 @@ def make_attack_step(spec: AttackSpec, cfg: VLAConfig, target_tokens: Optional[n
         if mesh is not None:
             draws = shard_batch(draws, mesh)
         dev = batch.images.device
-        labels = prepare_labels(spec, batch.labels, target_tensor(target_tokens, dev), maskidx, draws.coin)
-        lr_t = torch.tensor(lr, dtype=torch.float32, device=dev)
-        history: List[Dict[str, torch.Tensor]] = []
-        for d in draws.inner:
-            state, metrics = _inner_step(spec, cfg, params, state, batch, labels, lr_t,
-                                         bool(apply_update), d, mesh)
-            history.append(metrics)
-        return state, {k: torch.stack([h[k] for h in history]) for k in history[0]}
+        with outer_step("attack.step", dev):
+            labels = prepare_labels(spec, batch.labels, target_tensor(target_tokens, dev), maskidx, draws.coin)
+            lr_t = torch.tensor(lr, dtype=torch.float32, device=dev)
+            history: List[Dict[str, torch.Tensor]] = []
+            for d in draws.inner:
+                with span("attack.inner"):
+                    state, metrics = _inner_step(spec, cfg, params, state, batch, labels, lr_t,
+                                                 bool(apply_update), d, mesh)
+                history.append(metrics)
+            return state, {k: torch.stack([h[k] for h in history]) for k in history[0]}
 
     return step
 

@@ -32,6 +32,7 @@ from ..ops.attention import causal_bias, mha, mha_chunked, padding_bias
 from ..ops.flash_attention import mha_flash
 from ..parallel.tensor_parallel import copy_to_model, local_count, reduce_from_model, vocab_embed, vocab_token_logprob
 from ..utils.constants import IGNORE_INDEX
+from ..utils.profiling import count, span
 from .config import LlamaConfig
 from .param_tree import ParamTree, tree_from_leaves
 from .vit import _normal
@@ -78,11 +79,14 @@ def _attention(cfg: LlamaConfig, q, k, v, bias):
     """The `attn_impl` dispatch: "flash" -> the B1/B2 kernels
     (ops/flash_attention.py), "chunked" -> mha_chunked, otherwise (the JAX
     config value "xla") plain mha under autograd."""
-    if cfg.attn_impl == "flash":
-        return mha_flash(q, k, v, bias=bias)
-    if cfg.attn_impl == "chunked" and cfg.attn_chunk is not None:
-        return mha_chunked(q, k, v, bias=bias, chunk=cfg.attn_chunk)
-    return mha(q, k, v, bias=bias)
+    with span("attention"):
+        count("attention.calls")
+        if cfg.attn_impl == "flash":
+            count("attention.chunks")
+            return mha_flash(q, k, v, bias=bias)
+        if cfg.attn_impl == "chunked" and cfg.attn_chunk is not None:
+            return mha_chunked(q, k, v, bias=bias, chunk=cfg.attn_chunk)
+        return mha(q, k, v, bias=bias)
 
 
 def local_heads(cfg: LlamaConfig, mesh=None) -> Tuple[int, int]:
@@ -97,6 +101,7 @@ def decoder_block(cfg: LlamaConfig, x: torch.Tensor, layers: Dict, li: int,
     """One pre-norm decoder block on layer `li` of the stacked params (this
     rank's heads and intermediate slice under a model axis). SiLU runs in
     the model dtype (HF LlamaMLP), unlike the decode's f32 SiLU."""
+    count("blocks.llm")
     b, s, _ = x.shape
     hd = cfg.head_dim
     h, hkv = local_heads(cfg, mesh)

@@ -40,6 +40,7 @@ from .config import PhiConfig
 from .convert import getter, stacked_layers
 from .llama import rope_cos_sin, rotate_half
 from ..parallel.tensor_parallel import copy_to_model, local_count, reduce_from_model
+from ..utils.profiling import count, span
 from .param_tree import ParamTree
 from .vit import _normal, layer_norm
 
@@ -62,6 +63,7 @@ def _phi_block(cfg: PhiConfig, x: torch.Tensor, layers: Dict, li: int,
                bias: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, mesh=None) -> torch.Tensor:
     """One Phi block on layer `li` of the stacked params (this rank's heads
     and fc1 slice under a model axis)."""
+    count("blocks.llm")
     b, s, _ = x.shape
     hd = cfg.head_dim
     h = local_count(cfg.num_heads, mesh, "num_heads")
@@ -75,17 +77,19 @@ def _phi_block(cfg: PhiConfig, x: torch.Tensor, layers: Dict, li: int,
     q = _apply_partial_rope(heads("q"), cos, sin, cfg.rotary_dim)
     k = _apply_partial_rope(heads("k"), cos, sin, cfg.rotary_dim)
     v = heads("v")
-    if cfg.attn_impl == "chunked" and cfg.attn_chunk is not None:
-        attn = mha_chunked(q, k, v, bias=bias, chunk=cfg.attn_chunk)
-    elif cfg.attn_impl in ("xla", "chunked"):
-        attn = mha(q, k, v, bias=bias)
-    else:
-        # no silent fallback: 'flash' (B1/B2, head_dim 128 tiles) is not
-        # wired for Phi's head_dim 80
-        raise ValueError(
-            f"PhiConfig.attn_impl='{cfg.attn_impl}' is not supported "
-            "(use 'chunked' or 'xla')"
-        )
+    with span("attention"):
+        count("attention.calls")
+        if cfg.attn_impl == "chunked" and cfg.attn_chunk is not None:
+            attn = mha_chunked(q, k, v, bias=bias, chunk=cfg.attn_chunk)
+        elif cfg.attn_impl in ("xla", "chunked"):
+            attn = mha(q, k, v, bias=bias)
+        else:
+            # no silent fallback: 'flash' (B1/B2, head_dim 128 tiles) is not
+            # wired for Phi's head_dim 80
+            raise ValueError(
+                f"PhiConfig.attn_impl='{cfg.attn_impl}' is not supported "
+                "(use 'chunked' or 'xla')"
+            )
     attn = reduce_from_model(attn.transpose(1, 2).reshape(b, s, h * hd) @ p["o_w"], mesh) + p["o_b"]
 
     # parallel residual: the MLP reads the same normed input as attention

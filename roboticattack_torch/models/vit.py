@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import mha
+from ..utils.profiling import count, span
 from .config import ViTConfig
 from .param_tree import ParamTree
 
@@ -52,13 +53,16 @@ def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
 def _block(cfg: ViTConfig, x: torch.Tensor, p: Dict[str, torch.Tensor], li: int) -> torch.Tensor:
     """One pre-norm transformer block (timm Block semantics) on layer `li`
     of the stacked block params."""
+    count("blocks.vision")
     b, s, d = x.shape
     h, hd = cfg.num_heads, cfg.head_dim
 
     y = layer_norm(x, p["ln1_scale"][li], p["ln1_bias"][li], cfg.ln_eps)
     qkv = y @ p["qkv_w"][li] + p["qkv_b"][li]
     qkv = qkv.reshape(b, s, 3, h, hd).permute(2, 0, 3, 1, 4)  # [3, B, H, S, hd]
-    attn = mha(qkv[0], qkv[1], qkv[2])
+    with span("attention"):
+        count("attention.calls")
+        attn = mha(qkv[0], qkv[1], qkv[2])
     attn = attn.transpose(1, 2).reshape(b, s, d)
     attn = attn @ p["proj_w"][li] + p["proj_b"][li]
     if cfg.use_layerscale:

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..parallel.tensor_parallel import copy_to_model, reduce_from_model, split
+from ..utils.profiling import span
 from .config import PhiConfig, VLAConfig, torch_dtype
 from .llama import Llama, check_shard, cross_entropy_loss, embed_tokens, iter_llama_params, llama_apply
 from .param_tree import ParamTree, tree_from_leaves, tree_leaves
@@ -117,8 +118,9 @@ def vla_forward(
     proj_mesh = projector_mesh(params["projector"], cfg, mesh)
 
     def encode(pixels):
-        return projector_apply(params["projector"],
-                               vision_features(params["vision"], cfg, pixels, remat=cfg.remat), proj_mesh)
+        with span("vla.vision"):
+            return projector_apply(params["projector"],
+                                   vision_features(params["vision"], cfg, pixels, remat=cfg.remat), proj_mesh)
 
     if cfg.remat:
         projected = checkpoint(encode, pixel_values, use_reentrant=False)
@@ -129,8 +131,9 @@ def vla_forward(
     mm_emb = torch.cat([emb[:, :1], projected.to(emb.dtype), emb[:, 1:]], dim=1)
     ones = torch.ones(projected.shape[:2], dtype=attention_mask.dtype, device=attention_mask.device)
     mm_mask = torch.cat([attention_mask[:, :1], ones, attention_mask[:, 1:]], dim=1)
-    logits = apply_fn(llm, cfg.llm, mm_emb, attention_mask=mm_mask, remat=cfg.remat,
-                      logits_tail=input_ids.shape[1], mesh=mesh)
+    with span("vla.llm"):
+        logits = apply_fn(llm, cfg.llm, mm_emb, attention_mask=mm_mask, remat=cfg.remat,
+                          logits_tail=input_ids.shape[1], mesh=mesh)
     # every valid label lives in the text region and labels[0] (BOS) is
     # IGNORE, so the shifted CE over the text logits is the extended row's
     loss = cross_entropy_loss(logits, labels, mesh) if labels is not None else None

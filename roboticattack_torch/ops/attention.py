@@ -8,6 +8,8 @@ from typing import Optional
 
 import torch
 
+from ..utils.profiling import count
+
 NEG_INF = -(2.0**30)  # large finite negative; avoids NaN from all-masked rows
 
 
@@ -23,7 +25,9 @@ def mha(
 
     Scores are accumulated and kept in fp32 (the operands are upcast, so a
     bf16 product is exact and no bf16 rounding of the scores occurs); the
-    probabilities are cast to q.dtype before P·V."""
+    probabilities are cast to q.dtype before P·V. Each call counts as one
+    query block of `attention.chunks` (utils/profiling.count)."""
+    count("attention.chunks")
     b, hq, sq, d = q.shape
     hkv = k.shape[1]
     if scale is None:

@@ -1,15 +1,23 @@
 """Tracing and wall-clock step timing (the JAX package's
 `utils/profiling.py`). `maybe_trace` records a block with torch.profiler
-into one Chrome trace per rank; StepTimer's caller ends each timed step with
-a device synchronize; `counting_collectives` records each collective a block
-makes, with its bytes and host seconds (parallel/evidence.py's inventory)."""
+into one Chrome trace per rank; `span` and `count` mark the attack path's
+layers while a profiler records, on its timeline and in memory
+(`recorded_steps`); StepTimer's caller ends each timed step with a device
+synchronize; `counting_collectives` records each collective a block makes,
+with its bytes and host seconds (parallel/evidence.py's inventory)."""
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
+import threading
 import time
-from typing import Any, Iterator, NamedTuple, Optional
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Any, Deque, Dict, Iterator, List, NamedTuple, Optional, Tuple
+
+import torch
 
 
 @contextlib.contextmanager
@@ -143,3 +151,184 @@ def counting_collectives(log: list) -> Iterator[list]:
     finally:
         for n, f in saved.items():
             setattr(dist, n, f)
+
+
+# Spans and counters. The switch is the profiler itself: while none records,
+# `span` returns a shared no-op context after one flag check and `count`
+# does nothing, so the traced code runs exactly as untraced code does.
+_tracing = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+
+
+@dataclass(slots=True)
+class SpanRecord:
+    """One span of an outer step. `parent` indexes the enclosing span in the
+    step's `spans` (None for the step's own span); `recompute` says a
+    backward span was open when it opened (checkpoint recomputation, on
+    whichever thread the autograd engine runs it); `start_ns`/`end_ns` are
+    time.time_ns stamps, the clock of the profiler's events; `events` the
+    CUDA events recorded on the current stream at its edges (None off
+    CUDA)."""
+
+    name: str
+    parent: Optional[int]
+    step: int
+    thread: int
+    recompute: bool
+    start_ns: int
+    end_ns: Optional[int] = None
+    events: Optional[Tuple[Any, Any]] = None
+
+    def host_ms(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e6
+
+    def stream_ms(self) -> Optional[float]:
+        """Device-stream time between the span's edges, idle time included;
+        waits for the end event (call it after the traced work)."""
+        if self.events is None:
+            return None
+        start, end = self.events
+        end.synchronize()
+        return start.elapsed_time(end)
+
+
+@dataclass
+class OuterStep:
+    """The spans (in the order they opened) and counters of one outer step."""
+
+    id: int
+    cuda: bool
+    spans: List[SpanRecord] = field(default_factory=list)
+    counters: Dict[str, int] = field(default_factory=dict)
+
+    def named(self, name: str) -> List[SpanRecord]:
+        return [s for s in self.spans if s.name == name]
+
+    def host_ms(self, name: str) -> float:
+        return sum(s.host_ms() for s in self.named(name))
+
+    def stream_ms(self, name: str) -> Optional[float]:
+        """The summed stream time of the spans called `name`; None when they
+        recorded no CUDA events (or there are none)."""
+        spans = self.named(name)
+        if not spans or any(s.events is None for s in spans):
+            return None
+        return sum(s.stream_ms() for s in spans)
+
+
+class Recorder:
+    """The outer steps recorded while a profiler ran, the last `keep` of
+    them. Spans and counts outside an open outer step reach the profiler's
+    timeline only."""
+
+    def __init__(self, keep: int = 8) -> None:
+        self.steps: Deque[OuterStep] = deque(maxlen=keep)
+        self._ids = itertools.count()
+        self._lock = threading.Lock()
+        self._local = threading.local()  # each thread's stack of open span indices
+        self._step: Optional[OuterStep] = None
+        self._backward: Optional[int] = None  # the open backward span's index
+
+    def clear(self) -> None:
+        self.steps.clear()
+        self._step = self._backward = None
+
+    def open(self, name: str, backward: bool, device=None) -> Optional[tuple]:
+        """Record a span's opening (a new outer step's with `device`); the
+        token `close` takes, or None outside an outer step."""
+        if device is not None:
+            self._step = OuterStep(next(self._ids), torch.device(device).type == "cuda")
+            self.steps.append(self._step)
+        step = self._step
+        if step is None:
+            return None
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        held = self._backward
+        rec = SpanRecord(name, stack[-1] if stack else held, step.id, threading.get_ident(), held is not None,
+                         time.time_ns())
+        if step.cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            rec.events = (start, None)
+        with self._lock:
+            index = len(step.spans)
+            step.spans.append(rec)
+        stack.append(index)
+        if backward:
+            self._backward = index
+        return rec, stack, held, backward, device is not None
+
+    def close(self, token: tuple) -> None:
+        rec, stack, held, backward, outer = token
+        if rec.events is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            rec.events = (rec.events[0], end)
+        rec.end_ns = time.time_ns()
+        stack.pop()
+        if backward:
+            self._backward = held
+        if outer:
+            self._step = None
+
+    def count(self, name: str, n: int) -> None:
+        step = self._step
+        if step is not None:
+            with self._lock:
+                step.counters[name] = step.counters.get(name, 0) + n
+
+
+RECORDER = Recorder()
+
+
+class _Span:
+    __slots__ = ("name", "backward", "device", "_fn", "_token")
+
+    def __init__(self, name: str, backward: bool, device) -> None:
+        self.name, self.backward, self.device = name, backward, device
+
+    def __enter__(self):
+        self._fn = torch.profiler.record_function(self.name)
+        self._fn.__enter__()
+        self._token = RECORDER.open(self.name, self.backward, self.device)
+        return self
+
+    def __exit__(self, *exc):
+        if self._token is not None:
+            RECORDER.close(self._token)
+        self._fn.__exit__(*exc)
+        return False
+
+
+def span(name: str, backward: bool = False):
+    """A span over a block while a profiler records: a `record_function` on
+    the profiler's timeline, and a SpanRecord in the open outer step with
+    CUDA events at its edges when the step runs on CUDA (never a
+    synchronize). With `backward`, spans that open while it is open, on any
+    thread, are flagged `recompute` (and a thread with no open span of its
+    own parents them under it). With no profiler recording: a no-op."""
+    if not _tracing():
+        return _OFF
+    return _Span(name, backward, None)
+
+
+def outer_step(name: str, device):
+    """`span` that opens a new outer step of the recorder (its spans record
+    CUDA events when `device` is a CUDA device)."""
+    if not _tracing():
+        return _OFF
+    return _Span(name, False, device)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to the open outer step's counter `name` while a profiler
+    records."""
+    if _tracing():
+        RECORDER.count(name, n)
+
+
+def recorded_steps() -> List[OuterStep]:
+    """The outer steps recorded so far (the last few), oldest first."""
+    return list(RECORDER.steps)

@@ -1,0 +1,235 @@
+"""The attack path's spans and counters (`utils/profiling.span`,
+`outer_step`, `count`) on the benchmark's small configurations of both
+families, on the CPU: off without a profiler (nothing built, nothing kept,
+the step bit-equal to one with the recorder stubbed out), nested and
+counted as the step's structure under one, on the profiler's clock, and
+read by the benchmark's per-layer readers."""
+
+import dataclasses
+import importlib.util
+import os
+import statistics
+import sys
+import threading
+
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from roboticattack_torch.attacks import engine
+from roboticattack_torch.attacks.optimizer import adam_init
+from roboticattack_torch.models import llama, phi, vit, vlm
+from roboticattack_torch.models.vlm import init_vla_params
+from roboticattack_torch.ops import attention
+from roboticattack_torch.utils import profiling
+from vlabench.common import inputs
+from vlabench.common.program import vla_config
+from vlabench.tests import tiny
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FAMILIES = {"mistral": tiny.tiny_mistral, "phi": tiny.tiny_phi}
+INNER, BS, PAD_TO, PATCH = 2, 2, 32, 10
+READERS = ("attack.forward_host_ms", "attack.backward_host_ms", "attack.forward_stream_ms",
+           "attack.backward_stream_ms", "attack.attention_stream_ms", "attack.blocks_run_per_inner_step")
+PHASES = ["attack.patch", "attack.forward", "attack.objective", "attack.backward", "attack.update"]
+
+
+@pytest.fixture(autouse=True)
+def empty_recorder():
+    profiling.RECORDER.clear()
+    yield
+    profiling.RECORDER.clear()
+
+
+def attack(family, remat=True, chunk=64):
+    """(run, cfg): run() takes one UADA outer step of INNER inner steps of
+    the family's small VLA from fixed weights, batch, draws and patch, and
+    returns (patch, m, v, losses)."""
+    cfg = vla_config(FAMILIES[family]())
+    cfg = dataclasses.replace(cfg, remat=remat, llm=dataclasses.replace(cfg.llm, attn_chunk=chunk))
+    params = init_vla_params(torch.Generator().manual_seed(0), cfg)
+    spec = engine.AttackSpec(objective="uada", inner_loop=INNER, optimizer="adamW")
+    step = engine.make_attack_step(spec, cfg, None, range(7))
+    size = cfg.dino.image_size
+    batch = engine.batch_to_device(engine.AttackBatch(*next(inputs.batches(3, size, BS, PAD_TO))), "cpu")
+    draws = engine.draw_step(torch.Generator().manual_seed(1), spec, (BS, size, size, 3), (PATCH, PATCH),
+                             (BS, PAD_TO))
+    patch = inputs.initial_patch(3, PATCH)
+
+    def run():
+        state = engine.AttackState(patch=patch.clone(), opt=adam_init(patch), grad_acc=torch.zeros_like(patch))
+        state, metrics = step(params, state, batch, 2e-3, True, draws)
+        return state.patch, state.opt.m, state.opt.v, metrics["loss"]
+
+    return run, cfg
+
+
+def traced(family, **kw):
+    run, cfg = attack(family, **kw)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run()
+    (step,) = profiling.recorded_steps()
+    return step, cfg, prof
+
+
+def tower_blocks(cfg):
+    return cfg.dino.tap_layer + (cfg.siglip.tap_layer if cfg.siglip is not None else 0)
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_without_a_profiler_the_step_is_untouched(family, monkeypatch):
+    run, _ = attack(family)
+    assert profiling.span("a") is profiling.span("b") is profiling.outer_step("c", "cpu")
+
+    def refuse(*a, **k):
+        raise AssertionError("built while no profiler records")
+
+    with monkeypatch.context() as m:
+        m.setattr(torch.profiler, "record_function", refuse)
+        m.setattr(torch.cuda, "Event", refuse)
+        present = run()
+    assert profiling.recorded_steps() == []
+
+    def off(*a, **k):
+        return profiling._OFF
+
+    for mod in (engine, vlm, vit, llama, phi, attention):
+        for name in ("span", "outer_step", "count"):
+            if hasattr(mod, name):
+                monkeypatch.setattr(mod, name, off)
+    stubbed = run()
+    for a, b in zip(present, stubbed):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("chunk", [64, 16], ids=["chunk64", "chunk16"])
+@pytest.mark.parametrize("remat", [True, False], ids=["remat", "no_remat"])
+@pytest.mark.parametrize("family", FAMILIES)
+def test_spans_nest_and_counters_follow_the_structure(family, remat, chunk):
+    step, cfg, _ = traced(family, remat=remat, chunk=chunk)
+    spans = step.spans
+    children = {i: [j for j, s in enumerate(spans) if s.parent == i] for i in range(len(spans))}
+
+    def names(i):
+        return [spans[j].name for j in children[i]]
+
+    assert spans[0].name == "attack.step" and spans[0].parent is None
+    assert names(0) == ["attack.inner"] * INNER
+    towers, layers = tower_blocks(cfg), cfg.llm.num_layers
+    for inner in children[0]:
+        assert names(inner) == PHASES
+        fwd, bwd = children[inner][1], children[inner][3]
+        assert names(fwd) == ["vla.vision", "vla.llm"]
+        vision, llm = children[fwd]
+        assert names(vision) == ["attention"] * towers and names(llm) == ["attention"] * layers
+        under = [j for j in range(len(spans)) if _within(spans, j, bwd)]
+        assert all(spans[j].recompute for j in under)
+        assert not any(spans[j].recompute for j in range(len(spans)) if _within(spans, j, inner) and j not in under)
+        # remat: the vision encode once more, then each block's own recompute
+        assert sorted(spans[j].name for j in under) == (
+            sorted(["vla.vision"] + ["attention"] * (2 * towers + layers)) if remat else [])
+
+    seq = cfg.dino.num_patches + PAD_TO  # the patch tokens sit after BOS
+    runs = (3, 2) if remat else (1, 1)
+    c = {k: v / INNER for k, v in step.counters.items()}
+    assert c["blocks.vision"] == runs[0] * towers and c["blocks.llm"] == runs[1] * layers
+    assert c["attention.calls"] == c["blocks.vision"] + c["blocks.llm"] == len(step.named("attention")) / INNER
+    if seq % chunk:  # mha_chunked falls back to one whole-row block
+        assert c["attention.chunks"] == c["attention.calls"]
+    else:
+        assert c["attention.chunks"] == c["blocks.vision"] + c["blocks.llm"] * seq // chunk
+
+
+def _within(spans, j, ancestor):
+    p = spans[j].parent
+    while p is not None:
+        if p == ancestor:
+            return True
+        p = spans[p].parent
+    return False
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_span_stamps_share_the_profilers_clock(family):
+    """Each in-memory span lies inside the profiler's event of the same span
+    to 1 ms (its stamps are taken just inside the record_function, so a
+    clock offset over 1 ms either way fails), and the median edge lies
+    within 1 ms of it. A pause between the two stamps (the collector, or the
+    OS on a loaded machine) only moves the in-memory span inward."""
+    step, _, prof = traced(family)
+    events = {}
+    for e in prof.profiler.kineto_results.events():
+        events.setdefault(e.name(), []).append((e.start_ns(), e.end_ns()))
+    ms, gaps = 1_000_000, []
+    for name in {s.name for s in step.spans}:
+        theirs = events[name]
+        assert len(step.named(name)) == len(theirs), name
+        for s in step.named(name):
+            assert any(c - ms <= s.start_ns <= s.end_ns <= d + ms for c, d in theirs), name
+            gaps.append(min(max(abs(s.start_ns - c), abs(s.end_ns - d)) for c, d in theirs))
+    assert statistics.median(gaps) < ms
+
+
+def test_spans_on_another_thread_sit_under_the_open_backward_span():
+    rec = profiling.Recorder()
+    step = rec.open("attack.step", False, "cpu")
+    back = rec.open("attack.backward", True)
+    seen = []
+    worker = threading.Thread(target=lambda: seen.append(rec.open("attention", False)))
+    worker.start()
+    worker.join(timeout=30)
+    assert not worker.is_alive()
+    (token,) = seen
+    rec.close(token)
+    rec.close(back)
+    after = rec.open("attack.update", False)
+    rec.close(after)
+    rec.close(step)
+    (s,) = rec.steps
+    got = [(x.name, x.parent, x.recompute) for x in s.spans]
+    assert got == [("attack.step", None, False), ("attack.backward", 0, False), ("attention", 1, True),
+                   ("attack.update", 0, False)]
+    assert s.spans[2].thread != s.spans[1].thread and all(x.end_ns >= x.start_ns for x in s.spans)
+
+
+def _reader(name):
+    spec = importlib.util.spec_from_file_location(f"reader_{name.replace('.', '_')}",
+                                                  os.path.join(ROOT, "vlabench", "metrics", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.read
+
+
+class _Event:
+    """A stand-in for a CUDA event at host time `t` (ms)."""
+
+    def __init__(self, t):
+        self.t = t
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, end):
+        return end.t - self.t
+
+
+@pytest.mark.parametrize("name", READERS)
+def test_each_reader_reads_the_first_recorded_step(name, monkeypatch):
+    read = _reader(name)
+    assert read({}) is None  # an empty recorder
+    step, _, _ = traced("mistral")
+    for s in step.spans:  # stream times as if on CUDA: 2x each span's host time
+        s.events = (_Event(0.0), _Event(2 * s.host_ms()))
+    later = profiling.OuterStep(id=step.id + 1, cuda=False)
+    profiling.RECORDER.steps.append(later)  # a later step is not read
+    want = {
+        "attack.forward_host_ms": step.host_ms("attack.forward") / INNER,
+        "attack.backward_host_ms": step.host_ms("attack.backward") / INNER,
+        "attack.forward_stream_ms": 2 * step.host_ms("attack.forward") / INNER,
+        "attack.backward_stream_ms": 2 * step.host_ms("attack.backward") / INNER,
+        "attack.attention_stream_ms": 2 * step.host_ms("attention") / INNER,
+        "attack.blocks_run_per_inner_step": (step.counters["blocks.vision"] + step.counters["blocks.llm"]) / INNER,
+    }[name]
+    assert read({}) == pytest.approx(want) and want > 0
+    monkeypatch.setitem(sys.modules, "roboticattack_torch.utils.profiling", None)
+    assert read({}) is None  # a program without the recorder
