@@ -35,8 +35,12 @@ Phases, each of which fails the run (non-zero exit, no result line) on error:
                the card (the attack step's shape with a dummy batch's causal
                + padding bias, B=1, the verify smoke's bs 2 with its batch's
                bias, a data-parallel rank's bs 4, a ragged S, an all-zero
-               bias, S=17 inside one tile, S=2048), with times, bounds and the
-               scaled_dot_product_attention yardstick;
+               bias, S=17 inside one tile, S=2048, and the benchmark cells'
+               five attentions: Phi-2's head dim 80, the towers' 64 and 72
+               without a bias, Mistral's 8 key/value heads), each bit-equal
+               across two launches, with times, bounds and the
+               scaled_dot_product_attention yardstick at the attack shape and
+               the cells' shapes;
   6. attack  — the attack slice end to end: `cli.attack` (UADA, OpenVLA-7B
                at full width and depth, bf16, random weights, dummy data)
                in-process, its B1/B2 launch count, losses and patches; then
@@ -127,7 +131,8 @@ Phases, each of which fails the run (non-zero exit, no result line) on error:
                process's (1 - cosine) than twice the one process's own
                distance from the f32 gradient of the same weights and step
                (run in the phase), one patch SHA-256 across the ranks,
-               64 / 32 B1 / B2 launches, the collectives it recorded equal,
+               64 + 3 x 49 / 32 + 49 B1 / B2 launches (decoder + towers),
+               the collectives it recorded equal,
                as a multiset, to the audit of the same rank and step on meta
                tensors, its leaves' bytes equal to the audit's, no gather of
                1 MB, the load and step peaks beside a reckoning from the
@@ -140,7 +145,8 @@ Phases, each of which fails the run (non-zero exit, no result line) on error:
                remat, the towers frozen (the *-icy stage), fsdp on one rank,
                lr 2e-5, 4 steps on one dummy batch of 8: step 1 (lr 0)
                bit-equal, the loss falling strictly over steps 2-4, the
-               towers bit-equal, 64/32 B1/B2 launches a step, the peak
+               towers bit-equal, 64 + 2 x 49 / 32 B1/B2 launches a step
+               (the frozen towers' blocks run twice, forward only), the peak
                under 76 GiB beside the reckoning from the leaves, the share
                of LLM elements step 2 changed; per step wall ms, one step's
                forward+backward and update ms and its device profile; the
@@ -163,6 +169,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import base64
+import contextlib
 import dataclasses
 import gc
 import inspect
@@ -195,6 +202,7 @@ from roboticattack_torch.models import build_config, convert, get_config, safete
 from roboticattack_torch.models.convert import LLAMA_LAYER_NAMES, VIT_BLOCK_NAMES
 from roboticattack_torch.models.param_tree import tree_from_leaves, tree_leaves
 from roboticattack_torch.models.vlm import init_vla_params, param_count, vla_forward
+from roboticattack_torch.ops import attention as attention_ops
 from roboticattack_torch.ops import flash_attention as fa
 from roboticattack_torch.ops import kernel_build
 from roboticattack_torch.ops.attention import causal_bias, padding_bias
@@ -928,6 +936,19 @@ def phase_options(sl: dict, card: str) -> dict:
     return {"rows": rows, "jacobi_launches": {"round 1": l1, "round 2": l2}, "passes": (p1, p2)}
 
 
+def tower_blocks(cfg) -> int:
+    """B1 launches of one pass of the vision towers: one a block on the card
+    in bf16 (ops.attention.attend hands their heads of 64 and 72 to B1/B2),
+    none off it (plain attention there). Under an attack step with
+    per-block recomputation the towers run 3 passes an inner step (the
+    forward, the vision encode's recomputation, each block's own) and
+    launch one B2 a block; the trainer's frozen towers 2 passes a step and
+    no B2."""
+    if torch.device(DEVICE).type != "cuda" or cfg.dtype != "bfloat16":
+        return 0
+    return cfg.dino.tap_layer + (cfg.siglip.tap_layer if cfg.siglip is not None else 0)
+
+
 def dummy_batches(bs: int, seed: int = SEED):
     """The attack's dummy batches (numpy), OpenVLA-7B frame size."""
     size = get_config(MODEL).dino.image_size
@@ -945,16 +966,19 @@ def slice_bias(batch, num_patches: int) -> torch.Tensor:
     return (causal_bias(s, s, device="cuda") + padding_bias(mm))[:, 0].contiguous()
 
 
-def attention_bounds(b: int, h: int, s: int, d: int, bw: float) -> dict:
-    """Least times of B1 and B2 at [b, h, s, d]: each input read once, each
-    output written once, over the memory rate; the products' operations over
-    the bf16 tensor-core peak (the inputs are bf16)."""
-    qkv = b * h * s * d * 2
-    bias = b * s * s * 4
+def attention_bounds(b: int, h: int, s: int, d: int, bw: float, hkv=None, bias: bool = True) -> dict:
+    """Least times of B1 and B2 at q [b, h, s, d] with k/v [b, hkv, s, d]
+    (hkv = h without grouped heads), with or without the [b, s, s] bias:
+    each input read once, each output written once, over the memory rate;
+    the products' operations over the bf16 tensor-core peak (the inputs are
+    bf16)."""
+    qb = b * h * s * d * 2  # q, o, dO, dq
+    kvb = b * (h if hkv is None else hkv) * s * d * 2  # k, v, dk, dv
+    biasb = b * s * s * 4 if bias else 0
     stats = 2 * b * h * s * 4  # the row max and sum of exp
     out = {}
-    for kind, nbytes, flops in (("fwd", 4 * qkv + bias + stats, 4 * s * s * d * b * h),
-                                ("bwd", 7 * qkv + bias + stats, 10 * s * s * d * b * h)):
+    for kind, nbytes, flops in (("fwd", 2 * qb + 2 * kvb + biasb + stats, 4 * s * s * d * b * h),
+                                ("bwd", 3 * qb + 4 * kvb + biasb + stats, 10 * s * s * d * b * h)):
         byte_ms, op_ms = nbytes / bw * 1e3, flops / PEAK_BF16_FLOPS * 1e3
         out[kind] = dict(bytes=nbytes, flops=flops, byte_ms=byte_ms, op_ms=op_ms,
                          bound_ms=max(byte_ms, op_ms),
@@ -973,21 +997,24 @@ def check_close(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def flash_timing(shape, q, k, v, bias, do, stat_m, stat_l, bw: float, card: str) -> dict:
-    """B1 and B2 at `shape` timed as every kernel here (CUDA-graph replay),
-    beside their plain versions, their byte / operation bounds and the
-    scaled_dot_product_attention yardstick (a bf16 additive mask; for B2 its
-    forward+backward minus its forward)."""
-    bounds = attention_bounds(*shape, bw)
-    mask = bias[:, None].to(torch.bfloat16)
+    """B1 and B2 at `shape` (q's) timed as every kernel here (CUDA-graph
+    replay), beside their plain versions, their byte / operation bounds and
+    the scaled_dot_product_attention yardstick (the bias as a bf16 additive
+    mask, grouped heads by enable_gqa; for B2 its forward+backward minus its
+    forward)."""
+    hkv = k.shape[1]
+    bounds = attention_bounds(*shape, bw, hkv=hkv, bias=bias is not None)
+    mask = None if bias is None else bias[:, None].to(torch.bfloat16)
+    gqa = hkv != q.shape[1]
     qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
 
     def lib_fwd_bwd(_):
-        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, enable_gqa=gqa)
         torch.autograd.grad(out, (qg, kg, vg), do)
 
     # device time, as the kernels': eager timing of the backward reads
     # the host's autograd launch path whenever the host is slow
-    lib_fwd = device_ms(lambda _: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+    lib_fwd = device_ms(lambda _: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=gqa))
     lib_both = device_ms(lib_fwd_bwd)
     timing = {
         "fwd": dict(ms=device_ms(lambda _: fa.flash_attention_fwd(q, k, v, bias)),
@@ -1000,9 +1027,10 @@ def flash_timing(shape, q, k, v, bias, do, stat_m, stat_l, bw: float, card: str)
                     library_ms=lib_both - lib_fwd, **bounds["bwd"]),
     }
     for kind, t in timing.items():
-        log(f"flash: {FLASH_KERNELS[kind][0]} {list(shape)}: kernel_ms={t['ms']:.5f} "
+        log(f"flash: {FLASH_KERNELS[kind][0]} {list(shape)}{f' kv heads {hkv}' if gqa else ''}"
+            f"{'' if bias is not None else ' no bias'}: kernel_ms={t['ms']:.5f} "
             f"plain_ms={t['plain_ms']:.5f} library_ms={t['library_ms']:.5f} "
-            f"(scaled_dot_product_attention with a bf16 additive mask"
+            f"(scaled_dot_product_attention{' with a bf16 additive mask' if bias is not None else ''}"
             f"{'' if kind == 'fwd' else ', forward+backward minus forward'}; CUDA-graph replay) "
             f"bound_ms={t['bound_ms']:.5f} ({t['bound_by']}: {t['bytes'] / 1e6:.2f} MB -> "
             f"{t['byte_ms']:.5f} ms, {t['flops'] / 1e9:.2f} GFLOP -> {t['op_ms']:.5f} ms) "
@@ -1010,9 +1038,29 @@ def flash_timing(shape, q, k, v, bias, do, stat_m, stat_l, bw: float, card: str)
     return timing
 
 
+# the benchmark cells' attentions (vlabench/): label, (b, hq, s, d), hkv, with the decoder's bias
+CELL_ATTENTION = [
+    ("phi-2 decoder", (8, 32, 608, 80), 32, True),
+    ("CLIP ViT-L/14 at 336 px", (8, 16, 577, 64), 16, False),
+    ("DINOv2 ViT-L/14 with registers", (8, 16, 261, 64), 16, False),
+    ("SigLIP so400m/14", (8, 16, 256, 72), 16, False),
+    ("Mistral-7B decoder, 8 kv heads", (8, 32, 288, 128), 8, True),
+]
+
+
+def cell_bias(b: int, s: int) -> torch.Tensor:
+    """A decoder's f32 [B, S, S] causal + padding bias: row r's last 3 r
+    keys padded, as the benchmark's prompts padded to 32 leave them."""
+    mask = torch.ones((b, s), dtype=torch.int32, device="cuda")
+    for r in range(b):
+        if 3 * r:
+            mask[r, s - 3 * r:] = 0
+    return (causal_bias(s, s, device="cuda") + padding_bias(mask))[:, 0].contiguous()
+
+
 def phase_flash(bw: float, card: str) -> dict:
     """B1 and B2 against their plain versions on the card; times at the
-    attack step's shape."""
+    7B attack step's shape and at each benchmark cell's attention shape."""
     cfg = get_config(MODEL)
     h, d = cfg.llm.num_heads, cfg.llm.head_dim
     s = cfg.num_patches + PAD_TO
@@ -1023,35 +1071,50 @@ def phase_flash(bw: float, card: str) -> dict:
     def causal(b, n):
         return causal_bias(n, n, device="cuda")[:, 0].expand(b, n, n).contiguous()
 
-    cases = [  # label, q/k/v shape, bias
-        ("attack shape, dummy-batch bias", (ATTACK_BS, h, s, d), bias8),
-        ("B=1", (1, h, s, d), bias8[:1].contiguous()),
-        ("verify smoke shape, its batch's bias", (SMOKE_BS, h, s, d), bias2),
-        ("a data-parallel rank's rows (bs 4 of 8), their bias", (ATTACK_BS // 2, h, s, d),
-         bias8[: ATTACK_BS // 2].contiguous()),
-        ("ragged S=100", (2, 8, 100, d), causal(2, 100)),
-        ("all-zero bias", (2, 8, 128, d), torch.zeros((2, 128, 128), device="cuda")),
-        ("S=17, inside one tile", (2, 8, 17, d), causal(2, 17)),
-        ("S=2048 = MAX_SEQ", (1, 4, fa.MAX_SEQ, d), causal(1, fa.MAX_SEQ)),
-    ]
+    cases = [  # label, q/k/v shape, kv heads, bias, timed
+        ("attack shape, dummy-batch bias", (ATTACK_BS, h, s, d), h, bias8, True),
+        ("B=1", (1, h, s, d), h, bias8[:1].contiguous(), False),
+        ("verify smoke shape, its batch's bias", (SMOKE_BS, h, s, d), h, bias2, False),
+        ("a data-parallel rank's rows (bs 4 of 8), their bias", (ATTACK_BS // 2, h, s, d), h,
+         bias8[: ATTACK_BS // 2].contiguous(), False),
+        ("ragged S=100", (2, 8, 100, d), 8, causal(2, 100), False),
+        ("all-zero bias", (2, 8, 128, d), 8, torch.zeros((2, 128, 128), device="cuda"), False),
+        ("S=17, inside one tile", (2, 8, 17, d), 8, causal(2, 17), False),
+        ("S=2048 = MAX_SEQ", (1, 4, fa.MAX_SEQ, d), 4, causal(1, fa.MAX_SEQ), False),
+    ] + [(f"cell: {label}", shape, hkv, cell_bias(shape[0], shape[2]) if with_bias else None, True)
+         for label, shape, hkv, with_bias in CELL_ATTENTION]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errs = {"fwd": 0.0, "bwd": 0.0}
-    timing = {}
-    for label, shape, bias in cases:
-        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(4))
+    timing, cells = {}, {}
+    for label, shape, hkv, bias, timed in cases:
+        b, hq, n, hd = shape
+        q, do = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn((b, hkv, n, hd), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2))
         o, m, l = fa.flash_attention_fwd(q, k, v, bias)
         grads = fa.flash_attention_bwd(q, k, v, bias, do, m, l)
+        again = (*fa.flash_attention_fwd(q, k, v, bias), *fa.flash_attention_bwd(q, k, v, bias, do, m, l))
         torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip((o, m, l, *grads), again))
+        if not same:
+            raise AssertionError(f"flash {label}: two launches on the same inputs differ")
         e_fwd = check_close(f"B1 {label}", o, fa.flash_attention_fwd_plain(q, k, v, bias))
-        e_bwd = max(check_close(f"B2 {label} d{n}", g, w) for n, g, w in
+        e_bwd = max(check_close(f"B2 {label} d{nm}", g, w) for nm, g, w in
                     zip("qkv", grads, fa.flash_attention_bwd_plain(q, k, v, bias, do)))
         errs["fwd"], errs["bwd"] = max(errs["fwd"], e_fwd), max(errs["bwd"], e_bwd)
-        log(f"flash: {label} {list(shape)}: B1 max_abs_err={e_fwd:.4g}, B2 max_abs_err={e_bwd:.4g} "
-            f"(tol 2^-7 x max|plain| each)")
-        if timing:
+        log(f"flash: {label} {list(shape)} kv heads {hkv}{'' if bias is not None else ', no bias'}: "
+            f"B1 max_abs_err={e_fwd:.4g}, B2 max_abs_err={e_bwd:.4g} (tol 2^-7 x max|plain| each; two launches "
+            f"bit-equal)")
+        if not timed:
             continue
-        timing = flash_timing(shape, q, k, v, bias, do, m, l, bw, card)
-    return {"timing": timing, "errs": errs}
+        t = flash_timing(shape, q, k, v, bias, do, m, l, bw, card)
+        if timing:
+            cells[label] = {"shape": list(shape), "kv_heads": hkv, "bias": bias is not None,
+                            "errs": {"fwd": e_fwd, "bwd": e_bwd}, "timing": t}
+        else:
+            timing = t
+        del q, k, v, do, o, m, l, grads, again
+        torch.cuda.empty_cache()
+    return {"timing": timing, "errs": errs, "cells": cells}
 
 
 def attack_flops(cfg, bs: int, text_len: int) -> float:
@@ -1081,14 +1144,29 @@ def attack_flops(cfg, bs: int, text_len: int) -> float:
     return bs * (2 * lin + 3 * attn)
 
 
+@contextlib.contextmanager
+def plain_attention():
+    """Every attention of the block through plain PyTorch: the dispatch's
+    kernel test (ops.attention.takes_kernels) answers no, so a config with
+    attn_impl "xla" runs ops.attention.mha in the towers and the decoder."""
+    saved = attention_ops.takes_kernels
+    attention_ops.takes_kernels = lambda *a: False
+    try:
+        yield
+    finally:
+        attention_ops.takes_kernels = saved
+
+
 def step_against_plain(label: str, spec, cfg, params, patch, batch, labels, draws) -> tuple:
-    """One inner step's loss and patch gradient through the kernels (B1/B2)
-    against the plain attention path (attn_impl="xla") on the same inputs:
-    the loss within 1e-2 relative, the gradient's cosine at least 0.99.
-    Returns (relative loss difference, cosine)."""
+    """One inner step's loss and patch gradient through the kernels (B1/B2,
+    towers and decoder) against the plain attention path (attn_impl="xla"
+    under plain_attention) on the same inputs: the loss within 1e-2
+    relative, the gradient's cosine at least 0.99. Returns (relative loss
+    difference, cosine)."""
     xla_cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, attn_impl="xla"))
     loss_f, _, grad_f = engine.patch_loss_and_grad(spec, cfg, params, patch, batch, labels, draws)
-    loss_x, _, grad_x = engine.patch_loss_and_grad(spec, xla_cfg, params, patch, batch, labels, draws)
+    with plain_attention():
+        loss_x, _, grad_x = engine.patch_loss_and_grad(spec, xla_cfg, params, patch, batch, labels, draws)
     rel = abs(loss_f.item() - loss_x.item()) / abs(loss_x.item())
     cos = F.cosine_similarity(grad_f.flatten(), grad_x.flatten(), dim=0).item()
     log(f"{label}: kernel path vs plain attention (attn_impl='xla'), bs {batch.images.shape[0]}: loss "
@@ -1106,9 +1184,10 @@ def phase_attack(card: str) -> dict:
             "--innerLoop", str(INNER), "--bs", str(ATTACK_BS), "--pad_to", str(PAD_TO),
             "--warmup", "0", "--eval_every", str(CLI_EVAL_EVERY), "--eval_batches", "1",
             "--seed", str(SEED), "--device", DEVICE, "--output", out_dir]
-    layers = get_config(MODEL).llm.num_layers
+    layers, towers = get_config(MODEL).llm.num_layers, tower_blocks(get_config(MODEL))
     evals = len(range(0, CLI_ITERS, CLI_EVAL_EVERY))
-    want = {"fwd": CLI_ITERS * INNER * 2 * layers + evals * layers, "bwd": CLI_ITERS * INNER * layers}
+    want = {"fwd": CLI_ITERS * INNER * (2 * layers + 3 * towers) + evals * (layers + towers),
+            "bwd": CLI_ITERS * INNER * (layers + towers)}
     try:
         torch.cuda.reset_peak_memory_stats()
         fa.reset_launches()  # the main path's count starts here
@@ -1121,8 +1200,8 @@ def phase_attack(card: str) -> dict:
             f"{cli_s:.1f} s (weight init included); peak allocated "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
         log(f"attack: B1/B2 launches in the CLI run {launches}; expected {want} "
-            f"({CLI_ITERS} steps x {INNER} inner x (2 x {layers} B1 with remat, {layers} B2) + "
-            f"{evals} val forwards x {layers} B1)")
+            f"({CLI_ITERS} steps x {INNER} inner x (2 x {layers} decoder + 3 x {towers} tower B1 with remat, "
+            f"{layers} + {towers} B2) + {evals} val forwards x ({layers} + {towers}) B1)")
         if launches != want:
             raise AssertionError(f"CLI launch count {launches} != {want}")
         cli_peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1170,7 +1249,7 @@ def phase_attack(card: str) -> dict:
     state, metrics = step(params, state, batch, 2e-3, True, draws_for(spec))
     torch.cuda.synchronize()
     one = dict(fa.flash_attention.launches)
-    want_one = {"fwd": INNER * 2 * layers, "bwd": INNER * layers}
+    want_one = {"fwd": INNER * (2 * layers + 3 * towers), "bwd": INNER * (layers + towers)}
     log(f"attack: one outer step (UADA, {INNER} inner) launched B1/B2 {one}; expected {want_one}")
     if one != want_one:
         raise AssertionError(f"outer-step launch count {one} != {want_one}")
@@ -1729,7 +1808,8 @@ def phase_checkpoint(card: str, root: str) -> dict:
     argv = ["--attack", "uada", "--model", MODEL, "--dataset", "dummy", "--iter", "1",
             "--innerLoop", "1", "--bs", str(ATTACK_BS), "--pad_to", str(PAD_TO), "--warmup", "0",
             "--eval_every", "1", "--eval_batches", "1", "--seed", str(SEED), "--device", DEVICE]
-    want_fa = {"fwd": 2 * layers + layers, "bwd": layers}
+    towers = tower_blocks(get_config(MODEL))
+    want_fa = {"fwd": 2 * layers + 3 * towers + layers + towers, "bwd": layers + towers}
     runs = {}
     for tag, extra in (("--checkpoint", ["--checkpoint", root]), ("seeded", [])):
         run_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_attack_")
@@ -1742,8 +1822,9 @@ def phase_checkpoint(card: str, root: str) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         log(f"checkpoint: attack CLI ({tag}) UADA bs {ATTACK_BS}, 1 step x 1 inner: TRAIN_loss "
-            f"{losses!r} in {secs:.1f} s; B1/B2 launches {fl} (expected {want_fa}: 2 x {layers} "
-            f"B1 with remat and {layers} B2 a inner step, {layers} B1 for the one val forward); "
+            f"{losses!r} in {secs:.1f} s; B1/B2 launches {fl} (expected {want_fa}: 2 x {layers} decoder and "
+            f"3 x {towers} tower B1 with remat and {layers} + {towers} B2 a inner step, {layers} + {towers} B1 "
+            f"for the one val forward); "
             f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
         if fl != want_fa or len(losses) != 1 or not np.all(np.isfinite(losses)):
             raise AssertionError(f"attack run {tag}: losses {losses}, launches {fl}")
@@ -2188,7 +2269,8 @@ def phase_verify(card: str, root: str) -> dict:
         f"{ql['seconds']:.1f} s, peak {ql['peak_gib']:.2f} GiB [{card}]")
     layers = get_config(MODEL).llm.num_layers
     iters = len(sm["losses"])
-    want_fa = {"fwd": 2 * layers * iters, "bwd": layers * iters}
+    towers = tower_blocks(get_config(MODEL))
+    want_fa = {"fwd": (2 * layers + 3 * towers) * iters, "bwd": (layers + towers) * iters}
     if rc != 0 or not report["ok"] or not patch_ok or not man["ok"]:
         raise AssertionError(f"verify_checkpoint exit {rc}, report ok {report['ok']}")
     scaled = {k: d["max_abs"] / d["ref_scale"] for k, d in steps["parity"].items()}
@@ -2283,7 +2365,9 @@ def phase_ddp(card: str) -> dict:
         f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved before the runs")
     layers = get_config(MODEL).llm.num_layers
     evals = len(range(0, CLI_ITERS, CLI_EVAL_EVERY))
-    want = {"fwd": CLI_ITERS * INNER * 2 * layers + evals * layers, "bwd": CLI_ITERS * INNER * layers}
+    towers = tower_blocks(get_config(MODEL))
+    want = {"fwd": CLI_ITERS * INNER * (2 * layers + 3 * towers) + evals * (layers + towers),
+            "bwd": CLI_ITERS * INNER * (layers + towers)}
     root = tempfile.mkdtemp(prefix="chip_smoke_ddp_")
     out, files0, losses0 = {}, None, None
     try:
@@ -2337,7 +2421,8 @@ def phase_ddp(card: str) -> dict:
             if profile:
                 traces = sorted(os.listdir(trace_dir))
                 counts = trace_kernel_counts(os.path.join(trace_dir, "trace_rank0.json"))
-                want_trace = {"fwd": INNER * 2 * layers, "bwd_rows": INNER * layers, "bwd_cols": INNER * layers}
+                want_trace = {"fwd": INNER * (2 * layers + 3 * towers), "bwd_rows": INNER * (layers + towers),
+                              "bwd_cols": INNER * (layers + towers)}
                 log(f"ddp: {label}: --profile wrote {traces}; kernel events in trace_rank0.json {counts}, "
                     f"B1/B2 expected {want_trace} (step 1: {INNER} inner steps)")
                 if traces != ["trace_rank0.json"] or any(counts[k] != n for k, n in want_trace.items()):
@@ -2949,7 +3034,8 @@ def phase_tp_attack(card: str, audits: Audits) -> dict:
         r["rel_exact"] = abs(r["loss"] - e["loss"]) / abs(e["loss"])
         log(f"tp_attack: one process in f32 (plain attention), {e['objective']}: loss {e['loss']!r}; the bf16 "
             f"step's loss {r['rel_exact']:.3g} from it relative, its patch-gradient cosine {r['cos_exact']:.6f}")
-    want_launches = {"fwd": 2 * layers, "bwd": layers}
+    towers = tower_blocks(get_config(MODEL))
+    want_launches = {"fwd": 2 * layers + 3 * towers, "bwd": layers + towers}
     for r in ref:
         log(f"tp_attack: one process, {r['objective']} inner step: loss {r['loss']!r}, patch sha256 "
             f"{r['sha256'][:16]}, B1/B2 launches {r['launches']}, {r['seconds']:.2f} s")
@@ -3102,11 +3188,12 @@ def picked_grads(params: dict, cfg, batch, layer: int) -> tuple:
 
 def grads_against_plain(params: dict, cfg, batch) -> dict:
     """picked_grads through the kernels (B1/B2) against the plain attention
-    path (attn_impl="xla"): the loss within 1e-2 relative, each gradient's
-    cosine at least 0.99."""
+    path (attn_impl="xla" under plain_attention): the loss within 1e-2
+    relative, each gradient's cosine at least 0.99."""
     xla_cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, attn_impl="xla"))
     loss_f, grad_f = picked_grads(params, cfg, batch, TRAIN_CHECK_LAYER)
-    loss_x, grad_x = picked_grads(params, xla_cfg, batch, TRAIN_CHECK_LAYER)
+    with plain_attention():
+        loss_x, grad_x = picked_grads(params, xla_cfg, batch, TRAIN_CHECK_LAYER)
     rel = abs(loss_f - loss_x) / abs(loss_x)
     cos = {k: F.cosine_similarity(g.float().flatten(), grad_x[k].float().flatten(), dim=0).item()
            for k, g in grad_f.items()}
@@ -3351,9 +3438,11 @@ def phase_train(card: str) -> dict:
             changed = n / total
             log(f"train: step 2 (lr {TRAIN_LR:g}) changed {n:,} of {total:,} LLM elements: share {changed:.4f}")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    want = {"fwd": 2 * layers, "bwd": layers}
+    towers = tower_blocks(cfg)
+    want = {"fwd": 2 * layers + 2 * towers, "bwd": layers}
     log(f"train: losses per step {losses}; wall ms per step {[round(x, 2) for x in step_ms]}; B1/B2 launches "
-        f"per step {launches} (expected {want}: {layers} layers x 2 B1 under remat, {layers} B2); peak "
+        f"per step {launches} (expected {want}: {layers} layers x 2 B1 under remat, {layers} B2; the frozen "
+        f"towers' {towers} blocks x 2 B1, no B2); peak "
         f"{peak:.2f} GiB (limit {TRAIN_PEAK_GIB}), {built_gib:.2f} GiB once built, reckoned "
         f"{reckon['total']:.2f} GiB before activations and transients [{card}]")
     if any(n != want for n in launches):
@@ -3410,7 +3499,7 @@ def phase_train(card: str) -> dict:
     rc, secs, ranks, tail = torchrun_train(2)
     if rc != 0 or sorted(ranks) != [0, 1]:
         raise AssertionError(f"train: torchrun train-rank x2 exit {rc}, rank lines {sorted(ranks)}\n{tail}")
-    want_rank = {"fwd": 2 * RANK_LAYERS, "bwd": RANK_LAYERS}
+    want_rank = {"fwd": 2 * RANK_LAYERS + 2 * towers, "bwd": RANK_LAYERS}
     digests = set()
     for r, v in sorted(ranks.items()):
         for strategy in ("ddp", "fsdp"):
@@ -3528,7 +3617,8 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "at": f"[{ATTACK_BS}, 32, {256 + PAD_TO}, 128] bf16 with a dummy batch's causal + "
                   "padding bias, per launch; launches from the CLI run",
-            "max_abs_err_over": "phase_flash's shapes and the tp_attack ranks' local-head shapes",
+            "max_abs_err_over": "phase_flash's shapes (the benchmark cells' included) and the tp_attack ranks' "
+                                "local-head shapes",
             "on_main_path": True,
             "per_rank_shapes": {
                 f"{label} rank {r['shape']}": {
@@ -3537,6 +3627,12 @@ def main() -> int:
                     "library_ms": r["timing"][kind]["library_ms"], "max_abs_err": r["errs"][kind],
                     "at": f"a {label} attack rank's local heads, bf16, the dummy batch's bias, per launch"}
                 for label, r in flash_tp.items()},
+            "per_cell_shapes": {
+                f"{label} {r['shape']} kv heads {r['kv_heads']}{'' if r['bias'] else ', no bias'}": {
+                    "ms": r["timing"][kind]["ms"], "plain_ms": r["timing"][kind]["plain_ms"],
+                    "bound_ms": r["timing"][kind]["bound_ms"], "bound_by": r["timing"][kind]["bound_by"],
+                    "library_ms": r["timing"][kind]["library_ms"], "max_abs_err": r["errs"][kind]}
+                for label, r in flash["cells"].items()},
         })
     for mode, (kname, replaces) in KERNELS.items():
         def layer_sum(key, m=8, gs=GROUP):

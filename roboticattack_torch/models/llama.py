@@ -28,8 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import causal_bias, mha, mha_chunked, padding_bias
-from ..ops.flash_attention import mha_flash
+from ..ops.attention import attend, causal_bias, padding_bias
 from ..parallel.tensor_parallel import copy_to_model, local_count, reduce_from_model, vocab_embed, vocab_token_logprob
 from ..utils.constants import IGNORE_INDEX
 from ..utils.profiling import count, span
@@ -76,17 +75,12 @@ def apply_rope(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor, sin: torch.T
 
 
 def _attention(cfg: LlamaConfig, q, k, v, bias):
-    """The `attn_impl` dispatch: "flash" -> the B1/B2 kernels
-    (ops/flash_attention.py), "chunked" -> mha_chunked, otherwise (the JAX
-    config value "xla") plain mha under autograd."""
+    """ops.attention.attend under the config's `attn_impl`: the B1/B2
+    kernels wherever they take the input ("flash": always, raising where
+    they cannot), else mha_chunked ("chunked") or plain mha ("xla")."""
     with span("attention"):
         count("attention.calls")
-        if cfg.attn_impl == "flash":
-            count("attention.chunks")
-            return mha_flash(q, k, v, bias=bias)
-        if cfg.attn_impl == "chunked" and cfg.attn_chunk is not None:
-            return mha_chunked(q, k, v, bias=bias, chunk=cfg.attn_chunk)
-        return mha(q, k, v, bias=bias)
+        return attend(q, k, v, bias, cfg.attn_impl, cfg.attn_chunk)
 
 
 def local_heads(cfg: LlamaConfig, mesh=None) -> Tuple[int, int]:

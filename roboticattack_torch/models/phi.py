@@ -15,9 +15,11 @@ Under a model axis (`mesh`) the params are this rank's slices
 with their biases, o and fc2 row-parallel with their biases added after the
 sum, lm_head's weight and bias split on the vocab.
 
-Attention runs `mha_chunked` ("chunked") or `mha` ("xla"): the flash
-kernels B1/B2 are written for head_dim 128 and Phi-2's is 80, so
-`attn_impl="flash"` raises, as in the JAX package.
+Attention runs `ops.attention.attend`: the B1/B2 kernels wherever they
+take the input (bf16 on CUDA; Phi-2's head dim 80 included), else
+`mha_chunked` ("chunked") or `mha` ("xla"). `attn_impl="flash"` runs the
+kernels on every call (their plain versions on the CPU), where the JAX
+package refuses it for head dims other than 128.
 
 Params:
   embed:   [V, D]
@@ -35,7 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import causal_bias, mha, mha_chunked, padding_bias
+from ..ops.attention import attend, causal_bias, padding_bias
 from .config import PhiConfig
 from .convert import getter, stacked_layers
 from .llama import rope_cos_sin, rotate_half
@@ -79,17 +81,7 @@ def _phi_block(cfg: PhiConfig, x: torch.Tensor, layers: Dict, li: int,
     v = heads("v")
     with span("attention"):
         count("attention.calls")
-        if cfg.attn_impl == "chunked" and cfg.attn_chunk is not None:
-            attn = mha_chunked(q, k, v, bias=bias, chunk=cfg.attn_chunk)
-        elif cfg.attn_impl in ("xla", "chunked"):
-            attn = mha(q, k, v, bias=bias)
-        else:
-            # no silent fallback: 'flash' (B1/B2, head_dim 128 tiles) is not
-            # wired for Phi's head_dim 80
-            raise ValueError(
-                f"PhiConfig.attn_impl='{cfg.attn_impl}' is not supported "
-                "(use 'chunked' or 'xla')"
-            )
+        attn = attend(q, k, v, bias, cfg.attn_impl, cfg.attn_chunk)
     attn = reduce_from_model(attn.transpose(1, 2).reshape(b, s, h * hd) @ p["o_w"], mesh) + p["o_b"]
 
     # parallel residual: the MLP reads the same normed input as attention

@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import mha
+from ..ops.attention import attend
 from ..utils.profiling import count, span
 from .config import ViTConfig
 from .param_tree import ParamTree
@@ -59,10 +59,12 @@ def _block(cfg: ViTConfig, x: torch.Tensor, p: Dict[str, torch.Tensor], li: int)
 
     y = layer_norm(x, p["ln1_scale"][li], p["ln1_bias"][li], cfg.ln_eps)
     qkv = y @ p["qkv_w"][li] + p["qkv_b"][li]
-    qkv = qkv.reshape(b, s, 3, h, hd).permute(2, 0, 3, 1, 4)  # [3, B, H, S, hd]
+    # [B, H, S, hd] views of the packed projection; unbind's backward stacks
+    # the three gradients in one op
+    q, k, v = qkv.reshape(b, s, 3, h, hd).permute(2, 0, 3, 1, 4).unbind(0)
     with span("attention"):
         count("attention.calls")
-        attn = mha(qkv[0], qkv[1], qkv[2])
+        attn = attend(q, k, v)
     attn = attn.transpose(1, 2).reshape(b, s, d)
     attn = attn @ p["proj_w"][li] + p["proj_b"][li]
     if cfg.use_layerscale:

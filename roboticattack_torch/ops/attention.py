@@ -1,6 +1,8 @@
-"""Plain attention: QK^T -> fp32 softmax -> PV (`mha`, the vision towers'
-and the `attn_impl="xla"` decoder's), its query-chunked form (`mha_chunked`,
-`attn_impl="chunked"`), and the additive causal and padding biases."""
+"""Attention of every transformer block (`attend`: the hand-written
+B1/B2 kernels wherever they take the input, else plain attention), plain
+attention: QK^T -> fp32 softmax -> PV (`mha`), its query-chunked form
+(`mha_chunked`, `attn_impl="chunked"`), and the additive causal and padding
+biases."""
 
 from __future__ import annotations
 
@@ -9,8 +11,48 @@ from typing import Optional
 import torch
 
 from ..utils.profiling import count
+from .flash_attention import kernel_shape_problem, mha_flash
 
 NEG_INF = -(2.0**30)  # large finite negative; avoids NaN from all-masked rows
+
+
+ATTN_IMPLS = ("xla", "chunked", "flash")
+
+
+def takes_kernels(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: Optional[torch.Tensor]) -> bool:
+    """Whether B1/B2 (ops/flash_attention.py) take this self-attention: CUDA
+    q/k/v of the shapes and dtype they take (kernel_shape_problem: bf16,
+    Hkv dividing Hq, head dim 64/72/80/128, 1 <= S <= 2048), and no bias or
+    one [B, 1, S, S] (or [1, 1, S, S], shared by the rows)."""
+    if not q.is_cuda or kernel_shape_problem(q, k, v) is not None:
+        return False
+    b, _, s, _ = q.shape
+    return bias is None or (bias.dim() == 4 and bias.shape[0] in (1, b) and tuple(bias.shape[1:]) == (1, s, s))
+
+
+def attend(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    impl: str = "xla",
+    chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """One block's attention, chosen by what the input is: the B1/B2
+    kernels (`mha_flash`) where `takes_kernels`, else `mha_chunked` under
+    impl "chunked" with a chunk, else `mha`. impl "flash" always takes
+    `mha_flash`, which raises on what the kernels refuse (and runs their
+    plain versions on the CPU). Counts `attention.kernel` 0 here (each B1
+    launch adds 1), so a program that launches nothing reads 0."""
+    if impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl={impl!r} is not supported (one of {', '.join(ATTN_IMPLS)})")
+    count("attention.kernel", 0)
+    if impl == "flash" or takes_kernels(q, k, v, bias):
+        count("attention.chunks")
+        return mha_flash(q, k, v, bias=bias)
+    if impl == "chunked" and chunk is not None:
+        return mha_chunked(q, k, v, bias=bias, chunk=chunk)
+    return mha(q, k, v, bias=bias)
 
 
 def mha(

@@ -148,20 +148,99 @@ def test_cuda_skipped_steps_change_no_bit(cuda):
 
 @pytest.mark.cuda
 def test_cuda_wrapper_refuses_what_the_kernels_do_not_take(cuda):
-    """f32 operands, head dim 64, S past 2048, a per-head bias and GQA
-    raise before any launch."""
+    """f32 operands, head dim 96, S past 2048, a per-head bias and key/value
+    heads that do not divide the query heads raise before any launch."""
     q, k, v, _, bias = _inputs(1, 2, 64, cuda)
     before = dict(flash_attention.launches)
     with pytest.raises(ValueError, match="bf16"):
         flash_attention(q.float(), k.float(), v.float(), bias)
-    q64 = q[..., :64].contiguous()
+    q96 = q[..., :96].contiguous()
     with pytest.raises(ValueError, match="head dim"):
-        flash_attention(q64, q64, q64, bias)
+        flash_attention(q96, q96, q96, bias)
     long = torch.zeros((1, 1, 2049, 128), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="S <= 2048"):
         flash_attention(long, long, long, torch.zeros((1, 2049, 2049), device=cuda))
     with pytest.raises(ValueError, match="per-head bias"):
         mha_flash(q, k, v, bias[:, None].expand(1, 2, 64, 64))
-    with pytest.raises(ValueError, match="GQA"):
-        mha_flash(q, k[:, :1], v[:, :1])
+    q3 = torch.cat([q, q[:, :1]], dim=1)
+    with pytest.raises(ValueError, match="Hkv dividing H"):
+        mha_flash(q3, k, v)
     assert flash_attention.launches == before
+
+
+def _cell_inputs(b, hq, hkv, s, d, device, bias, seed=5):
+    """bf16 q/dO [B, Hq, S, d], k/v [B, Hkv, S, d], and None or the
+    decoder's f32 causal + padding bias [B, S, S] (row r's last 3 r keys
+    padded)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(h):
+        return torch.randn((b, h, s, d), generator=gen, device=device).to(torch.bfloat16)
+
+    q, k, v, do = draw(hq), draw(hkv), draw(hkv), draw(hq)
+    if not bias:
+        return q, k, v, do, None
+    i = torch.arange(s, device=device)
+    t = torch.where(i[None, :] <= i[:, None], 0.0, NEG_INF).expand(b, s, s).clone()
+    for r in range(b):
+        if 3 * r:
+            t[r, :, s - 3 * r:] += NEG_INF
+    return q, k, v, do, t
+
+
+# the benchmark cells' attentions, then the instances' edges
+CELL_SHAPES = [  # b, hq, hkv, s, d, bias
+    (8, 32, 32, 608, 80, True),    # Phi-2's decoder
+    (8, 16, 16, 577, 64, False),   # CLIP ViT-L/14 at 336 px (+ cls)
+    (8, 16, 16, 261, 64, False),   # DINOv2 ViT-L/14 with registers at 224 px
+    (8, 16, 16, 256, 72, False),   # SigLIP so400m/14 at 224 px
+    (8, 32, 8, 288, 128, True),    # Mistral-7B's decoder, 8 key/value heads
+    (2, 8, 2, 100, 72, True),      # d 72 with a bias, ragged S, group 4
+    (2, 4, 1, 65, 80, False),      # one row into a second tile, group 4
+    (1, 2, 2, 1, 64, False),       # one key
+    (1, 8, 2, 2048, 64, True),     # MAX_SEQ, group 4
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,s,d,bias", CELL_SHAPES)
+def test_cuda_kernels_match_plain_at_every_instance(cuda, b, hq, hkv, s, d, bias):
+    """B1/B2 at the cells' shapes (every head dim, grouped key/value heads,
+    with and without a bias) against the plain versions within 2^-7
+    max|plain|, and bit-equal over two launches."""
+    q, k, v, do, t = _cell_inputs(b, hq, hkv, s, d, cuda, bias)
+    _check_against_plain(q, k, v, do, t)
+    from roboticattack_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
+
+    first, second = flash_attention_fwd(q, k, v, t), flash_attention_fwd(q, k, v, t)
+    grads = [flash_attention_bwd(q, k, v, t, do, *first[1:]) for _ in range(2)]
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+    for x, y in zip(*grads):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 72])
+def test_cuda_strided_views_go_in_as_they_are(cuda, d):
+    """q/k/v as the models hand them over (the towers' slices of a packed
+    [B, S, 3, H, d] projection; the decoders' transposed [B, S, H, d]
+    heads) give the bits of contiguous copies, and mha_flash copies nothing:
+    its output's transpose(1, 2) is contiguous."""
+    b, s, h = 2, 77, 4
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    qkv = torch.randn((b, s, 3, h, d), generator=gen, device=cuda).to(torch.bfloat16)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    do = torch.randn((b, s, h, d), generator=gen, device=cuda).to(torch.bfloat16).transpose(1, 2)
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    out = mha_flash(*leaves)
+    out.backward(do)
+    copies = [x.contiguous().requires_grad_(True) for x in (q, k, v)]
+    want = mha_flash(*copies)
+    want.backward(do.contiguous())
+    torch.cuda.synchronize()
+    assert out.transpose(1, 2).is_contiguous()
+    assert torch.equal(out, want)
+    for x, y in zip(leaves, copies):
+        assert torch.equal(x.grad, y.grad)

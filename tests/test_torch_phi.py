@@ -1,7 +1,8 @@
 """The port's Phi-2 decoder (the phi-2+3b zoo entry) against the JAX
 package's on the CPU: `phi_apply` logits, `convert_phi`, `init_phi_params`
 shapes, a tiny Phi VLA's loss and pixel gradient through `vla_forward`, and
-the refusals (flash attention, action decoding)."""
+the refusals (an unknown attention implementation, action decoding), and
+`attn_impl="flash"`, which runs B1/B2's plain versions on the CPU."""
 
 import dataclasses
 
@@ -63,9 +64,22 @@ def test_phi_apply_matches_jax(jax_phi, attn_impl, chunk, masked):
 
 
 def test_phi_flash_attention_is_refused(jax_phi):
-    cfg, _ = _cfgs(attn_impl="flash")
-    with pytest.raises(ValueError, match="attn_impl='flash' is not supported"):
-        phi_apply(params_from_jax(jax_phi, "cpu"), cfg, torch.zeros(1, 4, SMALL["hidden_size"]))
+    """An attention implementation the port does not have is refused. Since
+    B1/B2 take Phi-2's head sizes, "flash" is not: it runs the kernels'
+    plain versions on the CPU and gives the JAX package's "xla" logits."""
+    cfg, _ = _cfgs(attn_impl="pallas")
+    params = params_from_jax(jax_phi, "cpu")
+    with pytest.raises(ValueError, match="attn_impl='pallas' is not supported"):
+        phi_apply(params, cfg, torch.zeros(1, 4, SMALL["hidden_size"]))
+    cfg, jcfg = _cfgs(attn_impl="xla")
+    mask = np.ones((2, 12), np.int32)
+    mask[1, 9:] = 0
+    emb = np.asarray(jax_phi["embed"])[np.random.default_rng(1).integers(2, SMALL["vocab_size"], (2, 12))]
+    want = np.asarray(jax_phi_apply(jax.tree.map(jnp.asarray, jax_phi), jcfg, jnp.asarray(emb),
+                                    attention_mask=jnp.asarray(mask)))
+    got = phi_apply(params, dataclasses.replace(cfg, attn_impl="flash"), torch.from_numpy(emb),
+                    attention_mask=torch.from_numpy(mask)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
 
 
 def test_init_phi_params_has_the_jax_layout(jax_phi):

@@ -233,3 +233,24 @@ def test_each_reader_reads_the_first_recorded_step(name, monkeypatch):
     assert read({}) == pytest.approx(want) and want > 0
     monkeypatch.setitem(sys.modules, "roboticattack_torch.utils.profiling", None)
     assert read({}) is None  # a program without the recorder
+
+
+def test_the_kernel_share_reader_reads_the_first_recorded_steps_counters(monkeypatch):
+    """attack.attention_kernel_share: `attention.kernel` over
+    `attention.calls` of the first recorded step, in %. The CPU's plain
+    attention keeps the counter at 0; a program that keeps no such counter
+    (or no recorder) reads None."""
+    read = _reader("attack.attention_kernel_share")
+    assert read({}) is None  # an empty recorder
+    step, _, _ = traced("phi")
+    calls = step.counters["attention.calls"]
+    assert step.counters["attention.kernel"] == 0 and calls > 0 and read({}) == 0.0
+    profiling.RECORDER.steps.append(profiling.OuterStep(id=step.id + 1, cuda=False))  # a later step is not read
+    step.counters["attention.kernel"] = calls
+    assert read({}) == pytest.approx(100.0)
+    step.counters["attention.kernel"] = calls // 4
+    assert read({}) == pytest.approx(100.0 * (calls // 4) / calls)
+    del step.counters["attention.kernel"]
+    assert read({}) is None
+    monkeypatch.setitem(sys.modules, "roboticattack_torch.utils.profiling", None)
+    assert read({}) is None
