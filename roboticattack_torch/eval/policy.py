@@ -24,7 +24,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..models.config import VLAConfig, get_config, torch_dtype
+from ..models.config import DeepseekV3Config, VLAConfig, get_config, torch_dtype
+from ..models.deepseek import unsupported
 from ..models.decode import (
     KV_CACHE_MODES,
     DecodeResult,
@@ -99,6 +100,8 @@ class VLAPolicy:
         int4_group_size_for(cfg, tp)), `decode` runs on every rank of the
         world, and rank 0 gets the whole batch's results (serving/ranks.py).
         With int4 on CUDA the kernel runs on each rank's local stacks."""
+        if isinstance(cfg.llm, DeepseekV3Config):
+            raise unsupported(f"serving ({cfg.name!r}: the policy's decode has no latent-attention cache)")
         self.device = resolve_device(device)
         if mesh is not None and mesh.device.type != self.device.type:
             raise ValueError(f"the mesh's ranks are on {mesh.device}, the policy asks for {self.device}")

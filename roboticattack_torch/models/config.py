@@ -110,11 +110,58 @@ class PhiConfig:
 
 
 @dataclass(frozen=True)
+class DeepseekV3Config:
+    """The DeepSeek-V3 decoder (HF `model_type: deepseek_v3`, its own
+    `modeling_deepseek.py`): multi-head latent attention (MLA) without a
+    query compression, each head's query/key `qk_nope_head_dim` +
+    `qk_rope_head_dim` wide and its value `v_head_dim`, the keys and values
+    read up from a `kv_lora_rank` latent and one rotary key shared by every
+    head; the first `first_k_dense_replace` layers with a dense SwiGLU MLP,
+    the rest with `n_routed_experts` SwiGLU experts of which each token reads
+    `num_experts_per_tok` (sigmoid scores plus a correction bias choose them,
+    the chosen unbiased scores, normalized and scaled by
+    `routed_scaling_factor`, weigh them) beside `n_shared_experts` experts
+    that every token reads. The field names are the HF config's where the
+    port has no name of its own."""
+    vocab_size: int = 163840
+    hidden_size: int = 2048
+    num_layers: int = 27
+    num_heads: int = 16
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    intermediate_size: int = 11264
+    moe_intermediate_size: int = 1408
+    n_routed_experts: int = 64
+    n_shared_experts: int = 2
+    num_experts_per_tok: int = 6
+    first_k_dense_replace: int = 1
+    routed_scaling_factor: float = 2.446
+    rope_theta: float = 50000.0
+    rms_eps: float = 1e-5
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def num_moe_layers(self) -> int:
+        return self.num_layers - self.first_k_dense_replace
+
+    @property
+    def shared_intermediate_size(self) -> int:
+        """The shared experts as one SwiGLU (HF `DeepseekV3MLP` of
+        moe_intermediate_size * n_shared_experts)."""
+        return self.moe_intermediate_size * self.n_shared_experts
+
+
+@dataclass(frozen=True)
 class VLAConfig:
     name: str
     dino: ViTConfig
     siglip: Optional[ViTConfig]
-    llm: "LlamaConfig | PhiConfig"
+    llm: "LlamaConfig | PhiConfig | DeepseekV3Config"
     pad_token_id: int = 32000
     pad_to_multiple_of: int = 64
     n_action_bins: int = 256
@@ -167,8 +214,16 @@ MISTRAL_7B = LlamaConfig(
     vocab_size=32064, intermediate_size=14336, num_kv_heads=8, attn_impl="chunked",
 )
 PHI_2 = PhiConfig()
+# moonshotai/Moonlight-16B-A3B config.json: q_lora_rank null, n_group =
+# topk_group = 1 (the group step chooses nothing), scoring sigmoid, topk
+# method noaux_tc, norm_topk_prob true, no rope scaling, untied head
+MOONLIGHT_16B_A3B = DeepseekV3Config()
 
 OPENVLA_7B = VLAConfig(name="openvla-7b", dino=DINOV2_VIT_L, siglip=SIGLIP_SO400M, llm=LLAMA2_7B)
+# OpenVLA's VLA (its towers and fused projector) on Moonlight's decoder; the
+# attack keeps the action-token ids 31744-31999 of the port's constants
+VLA_MOONLIGHT_16B_A3B = VLAConfig(name="vla-moonlight-16b-a3b", dino=DINOV2_VIT_L, siglip=SIGLIP_SO400M,
+                                  llm=MOONLIGHT_16B_A3B)
 
 # Tiny config for tests: same structural quirks (fused backbone, reg tokens,
 # layerscale, padded vocab) at toy scale, in fp32.
@@ -197,6 +252,7 @@ REGISTRY = {
     "openvla-7b-finetuned-libero-goal": OPENVLA_7B,
     "openvla-7b-finetuned-libero-10": OPENVLA_7B,
     "vla-tiny": VLA_TINY,
+    "vla-moonlight-16b-a3b": VLA_MOONLIGHT_16B_A3B,
 }
 
 

@@ -58,7 +58,8 @@ from ..parallel.mesh import ServingMesh
 from ..ops.q4_matmul import _unpack_nibbles, q4_matmul
 from ..utils.action_tokenizer import decode_tokens
 from ..utils.constants import ACTION_DIM, EMPTY_TOKEN_ID
-from .config import PhiConfig, VLAConfig, torch_dtype
+from .config import DeepseekV3Config, PhiConfig, VLAConfig, torch_dtype
+from .deepseek import unsupported
 from .llama import apply_rope, rms_norm, rope_cos_sin
 from .quant import _pack_nibbles
 from .vlm import projector_apply, vision_features
@@ -448,6 +449,8 @@ def greedy_decode_actions(
             "predict_action targets the OpenVLA (Llama-family) stack; the "
             "Phi-2 zoo VLM is a forward/CE model, not an action policy"
         )
+    if isinstance(cfg.llm, DeepseekV3Config):
+        raise unsupported("the serving decode (it has no latent-attention cache)")
     if mesh is not None and not isinstance(mesh, ServingMesh):
         raise TypeError(f"mesh={mesh!r}: pass a parallel.ServingMesh (parallel.make_serving_mesh)")
     lcfg = cfg.llm

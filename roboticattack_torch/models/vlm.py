@@ -7,7 +7,8 @@ the MLP projector, the attack's multimodal forward (`vla_forward`), and the
     pixel layout (models/vlm.py of the JAX package);
   - projector: fc1 -> GELU -> fc2 -> GELU -> fc3 (fused variant) or
     fc1 -> GELU -> fc2 (single tower), exact-erf GELU in fp32;
-  - decoder: Llama-family by default, Phi-2 for the `phi-2+3b` zoo entry.
+  - decoder: Llama-family by default, Phi-2 for the `phi-2+3b` zoo entry,
+    DeepSeek-V3 (latent attention, sparse experts) for a DeepseekV3Config.
 
 Under a model axis (`mesh`, parallel.make_mesh(model > 1)) the vision
 towers stay whole and run without a collective on every rank; the
@@ -27,7 +28,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..parallel.tensor_parallel import copy_to_model, reduce_from_model, split
 from ..utils.profiling import span
-from .config import PhiConfig, VLAConfig, torch_dtype
+from . import deepseek
+from .config import DeepseekV3Config, PhiConfig, VLAConfig, torch_dtype
 from .llama import Llama, check_shard, cross_entropy_loss, embed_tokens, iter_llama_params, llama_apply
 from .param_tree import ParamTree, tree_from_leaves, tree_leaves
 from .phi import Phi, init_phi_params, phi_apply
@@ -36,8 +38,17 @@ from .vit import ViT, _normal, init_vit_params, vit_features
 
 def decoder_apply_fn(cfg: VLAConfig):
     """The decoder forward for this config: Llama-family by default, Phi-2
-    for the one zoo entry that is not Llama-shaped (phi-2+3b)."""
+    for the one zoo entry that is not Llama-shaped (phi-2+3b), DeepSeek-V3
+    for a DeepseekV3Config."""
+    if isinstance(cfg.llm, DeepseekV3Config):
+        return deepseek.deepseek_apply
     return phi_apply if isinstance(cfg.llm, PhiConfig) else llama_apply
+
+
+def decoder_check_shard(cfg: VLAConfig):
+    """The decoder's check of the params a rank holds (models/llama.py's
+    for Llama and Phi, which read q widths of heads x head_dim)."""
+    return deepseek.check_shard if isinstance(cfg.llm, DeepseekV3Config) else check_shard
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -109,7 +120,7 @@ def vla_forward(
     slice; the loss is the whole rows' CE on every rank."""
     apply_fn = decoder_apply_fn(cfg)
     llm = params["llm"]
-    check_shard(llm, cfg.llm, mesh)
+    decoder_check_shard(cfg)(llm, cfg.llm, mesh)
     if pixel_values is None:
         logits = apply_fn(llm, cfg.llm, embed_tokens(llm, input_ids, mesh),
                           attention_mask=attention_mask, remat=cfg.remat, mesh=mesh)
@@ -166,7 +177,10 @@ class VLA(ParamTree):
             vision.add_module("siglip", ViT(cfg.siglip, tree["vision"]["siglip"]))
         self.vision = vision
         self.projector = Projector(tree["projector"])
-        self.llm = (Phi if isinstance(cfg.llm, PhiConfig) else Llama)(cfg.llm, tree["llm"])
+        if isinstance(cfg.llm, DeepseekV3Config):
+            self.llm = deepseek.Deepseek(cfg.llm, tree["llm"])
+        else:
+            self.llm = (Phi if isinstance(cfg.llm, PhiConfig) else Llama)(cfg.llm, tree["llm"])
 
     def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
         """Projected patch embeddings [B, num_patches, llm_dim]."""
@@ -184,8 +198,9 @@ def init_vla_params(
 def iter_vla_params(gen: torch.Generator, cfg: VLAConfig, device: Optional[torch.device] = None):
     """(path, leaf) of init_vla_params: the vision towers and the projector
     as one draw each, then, for a Llama-family VLA, every LLM leaf drawn
-    only when the caller asks for it (models.llama.iter_llama_params) and
-    not kept once it is handed over; a Phi LLM as one draw. The same draws
+    only when the caller asks for it (models.llama.iter_llama_params, and
+    models.deepseek.iter_deepseek_params for a DeepSeek-V3 LLM) and not
+    kept once it is handed over; a Phi LLM as one draw. The same draws
     in the same order, so the same values."""
     device = gen.device if device is None else device
     vision, projector = _init_vision_projector(gen, cfg, device)
@@ -193,6 +208,8 @@ def iter_vla_params(gen: torch.Generator, cfg: VLAConfig, device: Optional[torch
     del vision, projector
     if isinstance(cfg.llm, PhiConfig):
         llm = tree_leaves(init_phi_params(gen, cfg.llm, torch_dtype(cfg), device))
+    elif isinstance(cfg.llm, DeepseekV3Config):
+        llm = deepseek.iter_deepseek_params(gen, cfg.llm, torch_dtype(cfg), device)
     else:
         llm = iter_llama_params(gen, cfg.llm, torch_dtype(cfg), device)
     for path, leaf in llm:

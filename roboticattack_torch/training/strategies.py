@@ -49,7 +49,8 @@ import torch.distributed as dist
 
 from ..attacks.engine import AttackBatch, batch_to_device
 from ..attacks.losses import global_sums
-from ..models.config import VLAConfig, torch_dtype
+from ..models.config import DeepseekV3Config, VLAConfig, torch_dtype
+from ..models.deepseek import unsupported
 from ..models.llama import ce_sums
 from ..models.param_tree import tree_from_leaves, tree_leaves
 from ..models.vlm import vla_forward
@@ -281,6 +282,8 @@ class VLATrainer:
     ) -> None:
         if train_cfg.strategy not in ("ddp", "fsdp"):
             raise ValueError(f"unknown strategy {train_cfg.strategy}")
+        if isinstance(model_cfg.llm, DeepseekV3Config):
+            raise unsupported(f"the trainer ({model_cfg.name!r})")
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.cfg = train_cfg

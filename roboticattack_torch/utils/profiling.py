@@ -2,7 +2,8 @@
 `utils/profiling.py`). `maybe_trace` records a block with torch.profiler
 into one Chrome trace per rank; `span` and `count` mark the attack path's
 layers while a profiler records, on its timeline and in memory
-(`recorded_steps`); StepTimer's caller ends each timed step with a device
+(`recorded_steps`), and `keep` holds a step's device tensors for them;
+StepTimer's caller ends each timed step with a device
 synchronize; `counting_collectives` records each collective a block makes,
 with its bytes and host seconds (parallel/evidence.py's inventory)."""
 
@@ -194,12 +195,15 @@ class SpanRecord:
 
 @dataclass
 class OuterStep:
-    """The spans (in the order they opened) and counters of one outer step."""
+    """The spans (in the order they opened), counters and kept tensors of
+    one outer step."""
 
     id: int
     cuda: bool
     spans: List[SpanRecord] = field(default_factory=list)
     counters: Dict[str, int] = field(default_factory=dict)
+    # device tensors kept as they were (`keep`), read once the step is done
+    kept: Dict[str, List[torch.Tensor]] = field(default_factory=dict)
 
     def named(self, name: str) -> List[SpanRecord]:
         return [s for s in self.spans if s.name == name]
@@ -279,6 +283,12 @@ class Recorder:
             with self._lock:
                 step.counters[name] = step.counters.get(name, 0) + n
 
+    def keep(self, name: str, tensor: torch.Tensor) -> None:
+        step = self._step
+        if step is not None:
+            with self._lock:
+                step.kept.setdefault(name, []).append(tensor.detach())
+
 
 RECORDER = Recorder()
 
@@ -327,6 +337,14 @@ def count(name: str, n: int = 1) -> None:
     records."""
     if _tracing():
         RECORDER.count(name, n)
+
+
+def keep(name: str, tensor: torch.Tensor) -> None:
+    """Keep `tensor` (detached, where it lives: no copy to the host, so no
+    synchronize) under `name` in the open outer step while a profiler
+    records; a reader reduces the list after the step."""
+    if _tracing():
+        RECORDER.keep(name, tensor)
 
 
 def recorded_steps() -> List[OuterStep]:

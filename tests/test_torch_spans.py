@@ -254,3 +254,123 @@ def test_the_kernel_share_reader_reads_the_first_recorded_steps_counters(monkeyp
     assert read({}) is None
     monkeypatch.setitem(sys.modules, "roboticattack_torch.utils.profiling", None)
     assert read({}) is None
+
+
+def traced_moonlight(remat=True):
+    """One traced UADA outer step of the tiny Moonlight-shaped VLA
+    (tests/deepseek_tiny.py) with a nonzero correction bias."""
+    from deepseek_tiny import e_bias, tiny_moonlight
+
+    from vlabench.common import program_moe
+
+    cfg = dataclasses.replace(program_moe.vla_config(tiny_moonlight()), remat=remat)
+    params = init_vla_params(torch.Generator().manual_seed(0), cfg)
+    e_bias(params)
+    spec = engine.AttackSpec(objective="uada", inner_loop=INNER, optimizer="adamW")
+    step = engine.make_attack_step(spec, cfg, None, range(7))
+    size = cfg.dino.image_size
+    batch = engine.batch_to_device(engine.AttackBatch(*next(inputs.batches(3, size, BS, PAD_TO))), "cpu")
+    draws = engine.draw_step(torch.Generator().manual_seed(1), spec, (BS, size, size, 3), (PATCH, PATCH),
+                             (BS, PAD_TO))
+    patch = inputs.initial_patch(3, PATCH)
+    state = engine.AttackState(patch=patch, opt=adam_init(patch), grad_acc=torch.zeros_like(patch))
+    with profile(activities=[ProfilerActivity.CPU]):
+        step(params, state, batch, 2e-3, True, draws)
+    (recorded,) = profiling.recorded_steps()
+    return recorded, cfg, params, batch
+
+
+@pytest.mark.parametrize("remat", [True, False], ids=["remat", "no_remat"])
+def test_moe_spans_nest_under_the_decoder_and_the_backward(remat):
+    """A `moe` span a sparse-expert layer call: under `vla.llm` in the
+    forward, flagged `recompute` under `attack.backward` with remat;
+    `blocks.llm` counts every layer once a pass."""
+    step, cfg, _, _ = traced_moonlight(remat)
+    spans = step.spans
+    sparse = cfg.llm.num_moe_layers
+    towers = tower_blocks(cfg)
+    inners = [j for j, s in enumerate(spans) if s.name == "attack.inner"]
+    assert len(inners) == INNER
+    for inner in inners:
+        fwd = next(j for j, s in enumerate(spans) if s.name == "attack.forward" and s.parent == inner)
+        bwd = next(j for j, s in enumerate(spans) if s.name == "attack.backward" and s.parent == inner)
+        (llm,) = [j for j, s in enumerate(spans) if s.name == "vla.llm" and s.parent == fwd]
+        assert [s.name for s in spans if s.parent == llm] == ["attention"] + ["attention", "moe"] * sparse
+        under = [spans[j] for j in range(len(spans)) if _within(spans, j, bwd)]
+        assert all(s.recompute for s in under)
+        assert sum(s.name == "moe" for s in under) == (sparse if remat else 0)
+        assert not any(s.recompute for j, s in enumerate(spans) if s.name == "moe" and _within(spans, j, fwd))
+    runs = 2 if remat else 1
+    assert step.counters["blocks.llm"] == INNER * runs * cfg.llm.num_layers
+    assert step.counters["blocks.vision"] == INNER * (3 if remat else 1) * towers
+    assert step.counters["attention.calls"] == step.counters["blocks.llm"] + step.counters["blocks.vision"]
+
+
+def test_the_expert_load_reader_equals_a_hand_count(monkeypatch):
+    """attack.expert_load_max_over_mean: each sparse layer call's routed
+    rows by expert, kept on the device for the step, equal a count of the
+    expert choices made by hand from the layer's input; the reader gives
+    the mean over the calls of max over mean."""
+    from roboticattack_torch.models import deepseek
+
+    seen = []
+    original = deepseek.moe
+
+    def spy(cfg, y, p, routes, li):
+        seen.append((li, y.detach().clone(), p))
+        return original(cfg, y, p, routes, li)
+
+    monkeypatch.setattr(deepseek, "moe", spy)
+    step, cfg, _, _ = traced_moonlight(remat=True)
+    kept = step.kept["moe.expert_tokens"]
+    assert len(kept) == len(seen) == INNER * 2 * cfg.llm.num_moe_layers  # forward and recomputation
+    ratios = []
+    for rows, (li, y, p) in zip(kept, seen):
+        flat = y.reshape(-1, y.shape[-1])
+        idx = deepseek.choose_experts(cfg.llm, deepseek.router_scores(flat, p["router_w"]), p["e_bias"])
+        hand = torch.stack([(idx == e).sum() for e in range(cfg.llm.n_routed_experts)]).int()
+        assert rows.dtype == torch.int32 and torch.equal(rows, hand)
+        assert int(rows.sum()) == flat.shape[0] * cfg.llm.num_experts_per_tok
+        ratios.append(float(hand.max()) / float(hand.float().mean()))
+    read = _reader("attack.expert_load_max_over_mean")
+    assert read({}) == pytest.approx(sum(ratios) / len(ratios)) and read({}) > 1.0
+
+
+def test_the_moe_stream_reader_reads_the_moe_spans(monkeypatch):
+    read = _reader("attack.moe_stream_ms")
+    assert read({}) is None  # an empty recorder
+    step, _, _, _ = traced_moonlight()
+    for s in step.spans:
+        s.events = (_Event(0.0), _Event(2 * s.host_ms()))
+    assert read({}) == pytest.approx(2 * step.host_ms("moe") / INNER) and read({}) > 0
+    for s in step.spans:  # a step that recorded no CUDA events
+        s.events = None
+    assert read({}) is None
+    monkeypatch.setitem(sys.modules, "roboticattack_torch.utils.profiling", None)
+    assert read({}) is None
+
+
+def test_the_moe_readers_read_nothing_in_the_dense_cells():
+    """A dense family's step has no `moe` span and keeps no expert rows: the
+    two readers give None (their cells list the sparse cell alone)."""
+    traced("mistral")
+    assert _reader("attack.moe_stream_ms")({}) is None
+    assert _reader("attack.expert_load_max_over_mean")({}) is None
+
+
+def test_the_roofline_reader_reads_the_grouped_kernels():
+    """attack.moe_roofline_share: the bound of the traced step's inner steps
+    over the device time of the kernels named as PyTorch's sm90 grouped
+    GEMM; None without them or without the bound."""
+    from vlabench.common.trace import TraceSummary
+
+    read = _reader("attack.moe_roofline_share")
+    grouped = "_ZN7cutlass13device_kernelIN2at4cuda6detail25enable_3x_kernel_for_sm9xINS_4gemm6kernel13GemmUniversalINS5_17GroupProblemShapeE"
+    prepare = "void at::cuda::detail::prepare_grouped_gemm_data<cutlass::bfloat16_t>"
+    tr = TraceSummary(window_s=3.0, busy_s=2.0, by_name={grouped: (1170, 0.2), prepare: (1170, 0.005),
+                                                          "nvjet_tst_192x192": (10, 0.5)})
+    rec = {"trace": tr, "moe_bound_s": 0.0325, "inner_loop": 5}
+    assert read(rec) == pytest.approx(100.0 * 0.0325 * 5 / 0.205)
+    assert read(dict(rec, trace=TraceSummary(3.0, 2.0, {"nvjet_tst_192x192": (10, 0.5)}))) is None
+    assert read({k: v for k, v in rec.items() if k != "moe_bound_s"}) is None
+    assert read({}) is None
