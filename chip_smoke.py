@@ -43,11 +43,16 @@ Phases, each of which fails the run (non-zero exit, no result line) on error:
                the cells' shapes;
   6. attack  — the attack slice end to end: `cli.attack` (UADA, OpenVLA-7B
                at full width and depth, bf16, random weights, dummy data)
-               in-process, its B1/B2 launch count, losses and patches; then
-               one outer step's launches, the inner-step time, the device
-               breakdown and peak memory; TMA (with the val and clean-filter
-               steps) and UPA steps; one inner step's loss and patch gradient
-               through the kernels against the plain attention path;
+               in-process, the B1/B2 kernels its device trace shows run and
+               those launched from the host (steps 2-3 replay the step's CUDA
+               graph), losses and patches; then one outer step's launches,
+               the inner-step time, the device breakdown of a replayed outer
+               step with its B1/B2 kernels and peak memory; a captured and a
+               replayed outer step bit-equal to eager steps from the same
+               state, for OpenVLA-7B and for the Moonlight-16B-A3B VLA at full
+               width and depth; TMA (with the val and clean-filter steps) and
+               UPA steps; one inner step's loss and patch gradient through
+               the kernels against the plain attention path;
   7. data    — the RLDS data plane: the port's writer makes 24 episodes x 16
                steps of 256x256 JPEG frames in the bridge schema under
                build/; the native C++ reader (DATA_LAYER; built against the
@@ -222,6 +227,7 @@ from roboticattack_torch.utils.prompting import WordStubTokenizer, build_vla_exa
 from vlabench.common.trace import reduce_events
 
 MODEL = "openvla-7b"
+MOONLIGHT = "vla-moonlight-16b-a3b"  # the sparse-expert VLA, held graphed against eager in phase_attack
 SEED = 0
 VT_KEEP = 128  # visual_tokens of the pruned decode: half the 7B's 256 patches
 JACOBI_M = 56  # B4's rows in the Jacobi pass at bs 8: 8 rows x 7 draft positions
@@ -949,6 +955,39 @@ def tower_blocks(cfg) -> int:
     return cfg.dino.tap_layer + (cfg.siglip.tap_layer if cfg.siglip is not None else 0)
 
 
+def host_launches(calls: int, inner: int, per_inner: dict) -> dict:
+    """The B1/B2 launches that the kernels' wrappers make from the host over
+    `calls` outer steps of one attack step function at one batch shape on
+    the card, `per_inner` being one eager inner step's: the first call runs
+    its `inner` inner steps eager, the second captures one inner step into
+    the step's CUDA graph (attacks/graphed.py), and a replay launches
+    nothing from the host. Off the card every inner step runs eager."""
+    if torch.device(DEVICE).type != "cuda":
+        return {k: v * inner * calls for k, v in per_inner.items()}
+    return {k: v * (inner * min(calls, 1) + (calls >= 2)) for k, v in per_inner.items()}
+
+
+# B1's kernel, and B2's rows and columns kernels (one each a B2 launch), by
+# the start of their names in a device trace
+B1B2_KERNELS = ("flash_fwd_kernel<", "flash_bwd_rows_kernel<", "flash_bwd_cols_kernel<")
+
+
+def b1b2_kernel_runs(launches: dict) -> dict:
+    """The B1/B2 kernels a device trace shows for `launches`, by name."""
+    return dict(zip(B1B2_KERNELS, (launches["fwd"], launches["bwd"], launches["bwd"])))
+
+
+def device_kernel_runs(prof, words) -> dict:
+    """How many kernels whose names contain each of `words` a profiler saw
+    run on the device (a CUDA graph's replay included)."""
+    runs = dict.fromkeys(words, 0)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for w in words:
+                runs[w] += w in e.name
+    return runs
+
+
 def dummy_batches(bs: int, seed: int = SEED):
     """The attack's dummy batches (numpy), OpenVLA-7B frame size."""
     size = get_config(MODEL).dino.image_size
@@ -1177,6 +1216,40 @@ def step_against_plain(label: str, spec, cfg, params, patch, batch, labels, draw
     return rel, cos
 
 
+def graphed_against_eager(label: str, spec, cfg, params, batch, draws_for) -> dict:
+    """Three outer steps of one attack step function on `batch`: the first
+    eager, the second captures the step's CUDA graph and replays it, the
+    third replays it alone. The second and the third each against the same
+    outer step, from the same state and draws, of a new step function,
+    whose first call runs eager: every inner step's metrics, the patch and
+    AdamW's moments bit-equal, and no B1/B2 launched from the host in the
+    third. Returns the host's B1/B2 launches of the two."""
+    step = engine.make_attack_step(spec, cfg, None, range(7))
+    state = engine.init_attack_state(torch.Generator().manual_seed(SEED), PATCH_HW, DEVICE)
+    state, _ = step(params, state, batch, 2e-3, True, draws_for(spec))
+    out = {}
+    for call in ("capture", "replay"):
+        draws = draws_for(spec)
+        fa.reset_launches()
+        got, metrics = step(params, state, batch, 2e-3, True, draws)
+        torch.cuda.synchronize()
+        out[call] = dict(fa.flash_attention.launches)  # read right after the graphed step
+        want, eager = engine.make_attack_step(spec, cfg, None, range(7))(params, state, batch, 2e-3, True, draws)
+        pairs = {"patch": (got.patch, want.patch), "m": (got.opt.m, want.opt.m), "v": (got.opt.v, want.opt.v),
+                 **{k: (metrics[k], eager[k]) for k in eager}}
+        differ = sorted(k for k, (a, b) in pairs.items() if not torch.equal(a, b))
+        log(f"{label}: the outer step that {'captures and replays' if call == 'capture' else 'replays'} the "
+            f"graph against the eager step from the same state: losses {metrics['loss'].tolist()} vs "
+            f"{eager['loss'].tolist()}; patch, AdamW moments and metrics bit-equal: {not differ}; B1/B2 "
+            f"launched from the host {out[call]}")
+        if differ:
+            raise AssertionError(f"{label}: graphed {call} step differs from the eager step in {differ}")
+        if call == "replay" and any(out[call].values()):
+            raise AssertionError(f"{label}: a replayed step launched B1/B2 from the host: {out[call]}")
+        state = got
+    return out
+
+
 def phase_attack(card: str) -> dict:
     """The attack slice (main path: the CLI), then direct steps."""
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_attack_")
@@ -1186,22 +1259,32 @@ def phase_attack(card: str) -> dict:
             "--seed", str(SEED), "--device", DEVICE, "--output", out_dir]
     layers, towers = get_config(MODEL).llm.num_layers, tower_blocks(get_config(MODEL))
     evals = len(range(0, CLI_ITERS, CLI_EVAL_EVERY))
-    want = {"fwd": CLI_ITERS * INNER * (2 * layers + 3 * towers) + evals * (layers + towers),
-            "bwd": CLI_ITERS * INNER * (layers + towers)}
+    per_inner = {"fwd": 2 * layers + 3 * towers, "bwd": layers + towers}
+    ran_want = b1b2_kernel_runs({"fwd": CLI_ITERS * INNER * per_inner["fwd"] + evals * (layers + towers),
+                                 "bwd": CLI_ITERS * INNER * per_inner["bwd"]})
+    host = host_launches(CLI_ITERS, INNER, per_inner)
+    want = {"fwd": host["fwd"] + evals * (layers + towers), "bwd": host["bwd"]}
     try:
         torch.cuda.reset_peak_memory_stats()
         fa.reset_launches()  # the main path's count starts here
         t = time.perf_counter()
-        attack_cli.main(argv)
-        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            attack_cli.main(argv)
+            torch.cuda.synchronize()
         launches = dict(fa.flash_attention.launches)  # read right after the main path
         cli_s = time.perf_counter() - t
+        ran = device_kernel_runs(prof, B1B2_KERNELS)
+        del prof
         log(f"attack: `python -m roboticattack_torch.cli.attack {' '.join(argv[:-4])}` ran in "
-            f"{cli_s:.1f} s (weight init included); peak allocated "
+            f"{cli_s:.1f} s (weight init included; under the profiler, device activity alone); peak allocated "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
-        log(f"attack: B1/B2 launches in the CLI run {launches}; expected {want} "
+        log(f"attack: B1/B2 kernels run on the device in the CLI run {ran}; expected {ran_want} "
             f"({CLI_ITERS} steps x {INNER} inner x (2 x {layers} decoder + 3 x {towers} tower B1 with remat, "
-            f"{layers} + {towers} B2) + {evals} val forwards x ({layers} + {towers}) B1)")
+            f"{layers} + {towers} B2, two kernels each) + {evals} val forwards x ({layers} + {towers}) B1)")
+        log(f"attack: B1/B2 launched from the host {launches}; expected {want} (step 1's {INNER} inner steps "
+            f"eager, step 2's graph captured from one, replays launch nothing from the host; the val forwards)")
+        if ran != ran_want:
+            raise AssertionError(f"CLI B1/B2 kernels on the device {ran} != {ran_want}")
         if launches != want:
             raise AssertionError(f"CLI launch count {launches} != {want}")
         cli_peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1279,8 +1362,18 @@ def phase_attack(card: str) -> dict:
 
     found = device_profile(run_step, inner_ms * INNER, f"attack: one UADA outer step ({INNER} inner)",
                            card, match=("flash_fwd_kernel", "flash_bwd_", "nvjet", "gemm"))
+    fa.reset_launches()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run_step()
+    replayed = dict(fa.flash_attention.launches)
+    ran = device_kernel_runs(prof, B1B2_KERNELS)
+    log(f"attack: one more outer step (a replay of the step's graph) ran B1/B2 kernels {ran} on the device, "
+        f"expected {b1b2_kernel_runs(want_one)}; B1/B2 launched from the host {replayed}")
+    if ran != b1b2_kernel_runs(want_one) or any(replayed.values()):
+        raise AssertionError(f"replayed outer step: B1/B2 kernels {ran}, host launches {replayed}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"attack: peak torch.cuda.max_memory_allocated over the UADA steps = {peak:.2f} GiB [{card}]")
+    graphed = {MODEL: graphed_against_eager("attack", spec, cfg, params, batch, draws_for)}
 
     # TMA on the gripper dim, with the val and clean-filter steps
     maskidx = [6]
@@ -1311,8 +1404,17 @@ def phase_attack(card: str) -> dict:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+
+    # the sparse-expert VLA at full width and depth, graphed against eager
+    params = init_vla_params(torch.Generator(device=DEVICE).manual_seed(SEED), get_config(MOONLIGHT))
+    graphed[MOONLIGHT] = graphed_against_eager("attack moonlight", spec, get_config(MOONLIGHT), params, batch,
+                                               draws_for)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     return {"launches": launches, "inner_ms": inner_ms, "device": found, "peak_gib": peak,
-            "rel": rel, "cos": cos, "cli_timing": cli_timing, "cli_peak_gib": cli_peak, "want": want}
+            "rel": rel, "cos": cos, "cli_timing": cli_timing, "cli_peak_gib": cli_peak, "want": want,
+            "device_runs": ran, "graphed": graphed}
 
 
 # ------------------------------------------------------------------ data
@@ -1494,8 +1596,9 @@ def phase_data(card: str, att: dict) -> dict:
         cli_s = time.perf_counter() - t
         out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         log(f"data: `python -m roboticattack_torch.cli.attack {' '.join(argv[:-2])}` ran in {cli_s:.1f} s "
-            f"(weight init included); B1/B2 launches {launches}, expected {att['want']}; peak allocated "
-            f"{out['peak_gib']:.2f} GiB (the dummy-data CLI run: {att['cli_peak_gib']:.2f} GiB) [{card}]")
+            f"(weight init included); B1/B2 launched from the host {launches}, expected {att['want']}; "
+            f"peak allocated {out['peak_gib']:.2f} GiB (the dummy-data CLI run: {att['cli_peak_gib']:.2f} GiB) "
+            f"[{card}]")
         if launches != att["want"]:
             raise AssertionError(f"RLDS CLI launch count {launches} != {att['want']}")
         lines = [json.loads(ln) for ln in open(os.path.join(out_dir, "run-metrics.jsonl"))]
@@ -2270,7 +2373,7 @@ def phase_verify(card: str, root: str) -> dict:
     layers = get_config(MODEL).llm.num_layers
     iters = len(sm["losses"])
     towers = tower_blocks(get_config(MODEL))
-    want_fa = {"fwd": (2 * layers + 3 * towers) * iters, "bwd": (layers + towers) * iters}
+    want_fa = host_launches(iters, 1, {"fwd": 2 * layers + 3 * towers, "bwd": layers + towers})
     if rc != 0 or not report["ok"] or not patch_ok or not man["ok"]:
         raise AssertionError(f"verify_checkpoint exit {rc}, report ok {report['ok']}")
     scaled = {k: d["max_abs"] / d["ref_scale"] for k, d in steps["parity"].items()}

@@ -28,6 +28,12 @@ objectives reduce over the vocab slices (losses.py). The patch gradient
 then comes out equal on the ranks of a model group, so the data-axis
 all-reduces above stay one each per inner step, over the data group; the
 rows and draws are cut by the replica index d.
+
+On a CUDA device without a mesh, the work from the patched pixels on (the
+forward, the objective and the pixels' gradient) is one CUDA graph,
+captured at a step function's second call of a batch shape and replayed at
+every inner step after it (attacks/graphed.py); the paste chain, its
+backward and the update stay eager around it.
 """
 
 from __future__ import annotations
@@ -45,7 +51,8 @@ from ..utils.action_tokenizer import decode_tokens
 from ..utils.constants import ACTION_TOKEN_ZERO
 from ..utils.labels import change_target, draw_coin, mask_labels, overwrite_with_target
 from ..utils.normalization import dual_normalize
-from ..utils.profiling import outer_step, span
+from ..utils.profiling import count, outer_step, span
+from . import graphed
 from .losses import (
     action_preds_and_mask,
     clip_grad_l1,
@@ -162,33 +169,64 @@ def mesh_reducer(mesh):
     return None if mesh is None else (lambda v: all_reduce_sum(v, mesh))
 
 
+def patch_pixels(spec: AttackSpec, cfg: VLAConfig, images: torch.Tensor, patch: torch.Tensor,
+                 draws: PatchDraws) -> torch.Tensor:
+    """The model's pixels of the patched batch: the paste, the warp and the
+    composite, both towers' normalizations, the cast to the model dtype."""
+    with span("attack.patch"):
+        patched = apply_patch_batch(images, patch, draws, geometry=spec.geometry, resize_patch=spec.resize_patch)
+        return dual_normalize(patched).to(torch_dtype(cfg))
+
+
+def _objective(spec: AttackSpec, cfg: VLAConfig, params: Dict, input_ids, attention_mask, labels, pixels,
+               mesh=None):
+    """(loss, metrics) of the VLA on `pixels`: TMA's loss over
+    accumulate_steps."""
+    with span("attack.forward"):
+        # the CE comes from the objective's sums, not out.loss
+        out = vla_forward(params, cfg, input_ids, attention_mask, pixels, None, mesh=mesh)
+    with span("attack.objective"):
+        loss, metrics, _ = _objective_loss(spec, cfg, out.logits, labels, mesh_reducer(mesh), mesh=mesh)
+        if spec.objective == "tma":
+            loss = loss / spec.accumulate_steps
+    return loss, metrics
+
+
+def pixel_loss_and_grad(spec: AttackSpec, cfg: VLAConfig, params: Dict, input_ids, attention_mask, labels,
+                        pixels: torch.Tensor, mesh=None):
+    """(loss, metrics, grad) of one batch, the gradient with respect to
+    `pixels`, a leaf: the work from the pixels on, run eager or captured
+    into the attack step's CUDA graph (attacks/graphed.py)."""
+    with torch.enable_grad():
+        loss, metrics = _objective(spec, cfg, params, input_ids, attention_mask, labels, pixels, mesh)
+        # the checkpointed blocks recompute in here, on the autograd engine's thread on CUDA
+        with span("attack.backward", backward=True):
+            (grad,) = torch.autograd.grad(loss, pixels)
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grad
+
+
 def patch_loss_and_grad(spec: AttackSpec, cfg: VLAConfig, params: Dict, patch: torch.Tensor,
-                        batch: AttackBatch, labels, draws: PatchDraws, mesh=None):
+                        batch: AttackBatch, labels, draws: PatchDraws, mesh=None, region=None):
     """The objective of one inner step and its gradient with respect to the
-    patch pixels alone: (loss, metrics, grad). With a mesh, `batch`,
+    patch pixels alone: (loss, metrics, grad). The chain rule is split at
+    the model's pixels: `region(pixels) -> (loss, metrics, pixel_grad)`, a
+    prepared graph's `run`, or by default pixel_loss_and_grad on this batch,
+    then the paste chain's backward to the patch. With a mesh, `batch`,
     `labels` and `draws` are this rank's rows, and the loss, metrics and
     gradient are the global batch's (one all-reduce of the packed sums, one
     of the gradient)."""
-    reduce = mesh_reducer(mesh)
     patch = patch.detach().requires_grad_(True)
     with torch.enable_grad():
-        with span("attack.patch"):
-            patched = apply_patch_batch(batch.images, patch, draws, geometry=spec.geometry,
-                                        resize_patch=spec.resize_patch)
-            pixels = dual_normalize(patched).to(torch_dtype(cfg))
-        with span("attack.forward"):
-            # the CE comes from the objective's sums, not out.loss
-            out = vla_forward(params, cfg, batch.input_ids, batch.attention_mask, pixels, None, mesh=mesh)
-        with span("attack.objective"):
-            loss, metrics, _ = _objective_loss(spec, cfg, out.logits, labels, reduce, mesh=mesh)
-            if spec.objective == "tma":
-                loss = loss / spec.accumulate_steps
-        # the checkpointed blocks recompute in here, on the autograd engine's thread on CUDA
-        with span("attack.backward", backward=True):
-            (grad,) = torch.autograd.grad(loss, patch)
+        pixels = patch_pixels(spec, cfg, batch.images, patch, draws)
+        if region is None:
+            loss, metrics, pixel_grad = pixel_loss_and_grad(spec, cfg, params, batch.input_ids, batch.attention_mask,
+                                                            labels, pixels.detach().requires_grad_(True), mesh)
+        else:
+            loss, metrics, pixel_grad = region(pixels)
+        (grad,) = torch.autograd.grad(pixels, patch, pixel_grad)
     if mesh is not None:
         grad = all_reduce_sum(grad, mesh)
-    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grad
+    return loss, metrics, grad
 
 
 def update_patch(spec: AttackSpec, state: AttackState, grad: torch.Tensor, lr) -> Tuple[AttackState, torch.Tensor]:
@@ -209,8 +247,12 @@ def update_patch(spec: AttackSpec, state: AttackState, grad: torch.Tensor, lr) -
 
 def _inner_step(spec: AttackSpec, cfg: VLAConfig, params: Dict, state: AttackState,
                 batch: AttackBatch, labels, lr, apply_update: bool,
-                draws: PatchDraws, mesh=None) -> Tuple[AttackState, Dict[str, torch.Tensor]]:
-    loss, metrics, grad = patch_loss_and_grad(spec, cfg, params, state.patch, batch, labels, draws, mesh)
+                draws: PatchDraws, mesh=None, replay=None) -> Tuple[AttackState, Dict[str, torch.Tensor]]:
+    if replay is None:
+        loss, metrics, grad = patch_loss_and_grad(spec, cfg, params, state.patch, batch, labels, draws, mesh)
+    else:
+        loss, metrics, grad = patch_loss_and_grad(spec, cfg, params, state.patch, batch, labels, draws,
+                                                  region=replay)
     metrics.update(loss=loss, grad_mean=grad.mean())
 
     grad_total = state.grad_acc + grad
@@ -232,8 +274,12 @@ def make_attack_step(spec: AttackSpec, cfg: VLAConfig, target_tokens: Optional[n
     """step(params, state, batch, lr, apply_update, draws) -> (state,
     metrics), each metric stacked over the inner steps ([inner_loop]).
     With a mesh, `batch` is this rank's rows and `draws` the global
-    batch's."""
+    batch's. On a CUDA device without a mesh the step replays a CUDA graph
+    of the forward and the pixels' gradient from its second call of a
+    batch shape on (attacks/graphed.py)."""
     maskidx = tuple(maskidx)
+    graph = graphed.GraphedObjective(
+        lambda params, ids, mask, labels, pixels: pixel_loss_and_grad(spec, cfg, params, ids, mask, labels, pixels))
 
     def step(params: Dict, state: AttackState, batch: AttackBatch, lr: float,
              apply_update: bool, draws: StepDraws):
@@ -245,11 +291,14 @@ def make_attack_step(spec: AttackSpec, cfg: VLAConfig, target_tokens: Optional[n
         with outer_step("attack.step", dev):
             labels = prepare_labels(spec, batch.labels, target_tensor(target_tokens, dev), maskidx, draws.coin)
             lr_t = torch.tensor(lr, dtype=torch.float32, device=dev)
+            replay = (graph.prepare(params, batch.images, batch.input_ids, batch.attention_mask, labels)
+                      if graphed.applies(dev, mesh) else None)
+            count("attack.graph_replays", 0)  # each replay adds 1: an eager step reads 0
             history: List[Dict[str, torch.Tensor]] = []
             for d in draws.inner:
                 with span("attack.inner"):
                     state, metrics = _inner_step(spec, cfg, params, state, batch, labels, lr_t,
-                                                 bool(apply_update), d, mesh)
+                                                 bool(apply_update), d, mesh, replay)
                 history.append(metrics)
             return state, {k: torch.stack([h[k] for h in history]) for k in history[0]}
 

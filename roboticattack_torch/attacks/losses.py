@@ -128,7 +128,7 @@ def local_sums(objective: str, logits, labels, cfg: VLAConfig, mse_weight: float
         xyz_pred, xyz_gt = _xyz(_expectation(sl, 1.0, mesh), gt, mask)
         out.update(angle=(cosine_similarity(xyz_pred, xyz_gt) + 1.0).sum(),
                    dist=torch.linalg.vector_norm(xyz_pred - xyz_gt, dim=-1).sum(),
-                   rows=torch.tensor(float(gt.shape[0]), device=gt.device))
+                   rows=torch.full((), float(gt.shape[0]), device=gt.device))  # a fill: no host copy
     return out
 
 

@@ -201,7 +201,9 @@ def deepseek_apply(
     x = inputs_embeds
     for li in range(cfg.num_layers):
         if remat:
-            x = checkpoint(decoder_block, cfg, x, params, li, bias, cos, sin, routes, use_reentrant=False)
+            # no block draws random numbers, so no RNG state is stashed (a CUDA graph's capture refuses it)
+            x = checkpoint(decoder_block, cfg, x, params, li, bias, cos, sin, routes, use_reentrant=False,
+                           preserve_rng_state=False)
         else:
             x = decoder_block(cfg, x, params, li, bias, cos, sin, routes)
     x = rms_norm(x, params["norm"], cfg.rms_eps)

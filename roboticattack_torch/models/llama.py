@@ -143,7 +143,9 @@ def llama_apply(
     layers = params["layers"]
     for li in range(len(layers["q_w"])):  # a stack, or a list of per-layer leaves
         if remat:
-            x = checkpoint(decoder_block, cfg, x, layers, li, bias, cos, sin, mesh, use_reentrant=False)
+            # no block draws random numbers, so no RNG state is stashed (a CUDA graph's capture refuses it)
+            x = checkpoint(decoder_block, cfg, x, layers, li, bias, cos, sin, mesh, use_reentrant=False,
+                           preserve_rng_state=False)
         else:
             x = decoder_block(cfg, x, layers, li, bias, cos, sin, mesh)
     x = rms_norm(x, params["norm"], cfg.rms_eps)

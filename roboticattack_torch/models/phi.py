@@ -114,7 +114,9 @@ def phi_apply(
     layers = params["layers"]
     for li in range(len(layers["q_w"])):  # a stack, or a list of per-layer leaves
         if remat:
-            x = checkpoint(_phi_block, cfg, x, layers, li, bias, cos, sin, mesh, use_reentrant=False)
+            # no block draws random numbers, so no RNG state is stashed (a CUDA graph's capture refuses it)
+            x = checkpoint(_phi_block, cfg, x, layers, li, bias, cos, sin, mesh, use_reentrant=False,
+                           preserve_rng_state=False)
         else:
             x = _phi_block(cfg, x, layers, li, bias, cos, sin, mesh)
     x = layer_norm(x, params["norm"]["scale"], params["norm"]["bias"], cfg.ln_eps)

@@ -112,7 +112,8 @@ def vit_features(params: Dict, cfg: ViTConfig, images: torch.Tensor, remat: bool
 
     for li in range(len(params["blocks"]["qkv_w"])):  # a stack, or a list of per-layer leaves
         if remat:
-            x = checkpoint(_block, cfg, x, params["blocks"], li, use_reentrant=False)
+            # no block draws random numbers, so no RNG state is stashed (a CUDA graph's capture refuses it)
+            x = checkpoint(_block, cfg, x, params["blocks"], li, use_reentrant=False, preserve_rng_state=False)
         else:
             x = _block(cfg, x, params["blocks"], li)
     return x[:, cfg.num_prefix_tokens :, :]

@@ -134,7 +134,8 @@ def vla_forward(
                                    vision_features(params["vision"], cfg, pixels, remat=cfg.remat), proj_mesh)
 
     if cfg.remat:
-        projected = checkpoint(encode, pixel_values, use_reentrant=False)
+        # no RNG state stashed: nothing here draws random numbers (a CUDA graph's capture refuses it)
+        projected = checkpoint(encode, pixel_values, use_reentrant=False, preserve_rng_state=False)
     else:
         projected = encode(pixel_values)
 

@@ -8,6 +8,8 @@ token decodes through the 255 bin centers as
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -18,12 +20,18 @@ BINS = np.linspace(-1.0, 1.0, N_ACTION_BINS)
 BIN_CENTERS = (BINS[:-1] + BINS[1:]) / 2.0
 
 
+@functools.lru_cache(maxsize=None)
+def _bin_centers(device: torch.device) -> torch.Tensor:
+    """BIN_CENTERS as float32 on `device`, copied there once (a host copy
+    waits for the device, and a CUDA graph's capture refuses one)."""
+    return torch.as_tensor(BIN_CENTERS, dtype=torch.float32, device=device)
+
+
 def decode_tokens(token_ids: torch.Tensor, vocab_size: int = VOCAB_SIZE) -> torch.Tensor:
     """Token ids -> continuous actions (float32 bin centers), incl. the
     terminal clip."""
     discretized = torch.clamp(vocab_size - token_ids - 1, 0, BIN_CENTERS.shape[0] - 1)
-    centers = torch.as_tensor(BIN_CENTERS, dtype=torch.float32, device=token_ids.device)
-    return centers[discretized.long()]
+    return _bin_centers(token_ids.device)[discretized.long()]
 
 
 def encode_actions(actions: torch.Tensor, vocab_size: int = VOCAB_SIZE) -> torch.Tensor:

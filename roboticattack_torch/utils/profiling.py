@@ -3,6 +3,8 @@
 into one Chrome trace per rank; `span` and `count` mark the attack path's
 layers while a profiler records, on its timeline and in memory
 (`recorded_steps`), and `keep` holds a step's device tensors for them;
+`tallying` sets a block's counts and kept tensors aside (a CUDA graph's
+capture), and `credit` hands them to the recorder at each replay;
 StepTimer's caller ends each timed step with a device
 synchronize; `counting_collectives` records each collective a block makes,
 with its bytes and host seconds (parallel/evidence.py's inventory)."""
@@ -159,6 +161,19 @@ def counting_collectives(log: list) -> Iterator[list]:
 # does nothing, so the traced code runs exactly as untraced code does.
 _tracing = torch._C._autograd._profiler_enabled
 _OFF = contextlib.nullcontext()
+
+
+@dataclass
+class Tally:
+    """What a block counted and kept while `tallying` was open."""
+
+    counters: Dict[str, int] = field(default_factory=dict)
+    kept: Dict[str, List[torch.Tensor]] = field(default_factory=dict)
+
+
+# The open tally, or None. One for the process, not a thread's: a capture's
+# backward counts on the autograd engine's thread.
+_TALLY: Optional[Tally] = None
 
 
 @dataclass(slots=True)
@@ -318,8 +333,9 @@ def span(name: str, backward: bool = False):
     CUDA events at its edges when the step runs on CUDA (never a
     synchronize). With `backward`, spans that open while it is open, on any
     thread, are flagged `recompute` (and a thread with no open span of its
-    own parents them under it). With no profiler recording: a no-op."""
-    if not _tracing():
+    own parents them under it). With no profiler recording, or inside
+    `tallying`: a no-op."""
+    if not _tracing() or _TALLY is not None:
         return _OFF
     return _Span(name, backward, None)
 
@@ -334,17 +350,49 @@ def outer_step(name: str, device):
 
 def count(name: str, n: int = 1) -> None:
     """Add `n` to the open outer step's counter `name` while a profiler
-    records."""
-    if _tracing():
+    records (to the open tally's instead, inside `tallying`)."""
+    tally = _TALLY
+    if tally is not None:
+        tally.counters[name] = tally.counters.get(name, 0) + n
+    elif _tracing():
         RECORDER.count(name, n)
 
 
 def keep(name: str, tensor: torch.Tensor) -> None:
     """Keep `tensor` (detached, where it lives: no copy to the host, so no
     synchronize) under `name` in the open outer step while a profiler
-    records; a reader reduces the list after the step."""
-    if _tracing():
+    records; a reader reduces the list after the step. Inside `tallying`,
+    the open tally keeps it instead."""
+    tally = _TALLY
+    if tally is not None:
+        tally.kept.setdefault(name, []).append(tensor.detach())
+    elif _tracing():
         RECORDER.keep(name, tensor)
+
+
+@contextlib.contextmanager
+def tallying() -> Iterator[Tally]:
+    """Within the block, `count` and `keep` go to a new Tally (yielded),
+    whether or not a profiler records, and `span` is a no-op: the block's
+    Python runs once (a CUDA graph's capture) for work that runs later."""
+    global _TALLY
+    saved, _TALLY = _TALLY, Tally()
+    try:
+        yield _TALLY
+    finally:
+        _TALLY = saved
+
+
+def credit(tally: Tally) -> None:
+    """While a profiler records, add `tally`'s counts to the open outer
+    step's counters, and keep a copy of each of its kept tensors (a replay
+    overwrites them), as if the tallied block had run again."""
+    if _tracing():
+        for name, n in tally.counters.items():
+            RECORDER.count(name, n)
+        for name, tensors in tally.kept.items():
+            for t in tensors:
+                RECORDER.keep(name, t.clone())
 
 
 def recorded_steps() -> List[OuterStep]:
