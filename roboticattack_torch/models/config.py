@@ -7,9 +7,12 @@ the dinosiglip-224px + Llama-2-7B stack:
   - SigLIP ViT-so400m/14 (timm `vit_so400m_patch14_siglip_224`)
   - Llama-2-7B w/ 32064-row padded embedding (vocab 32000 + pad to mult. 64)
 
-Fields that select JAX-only machinery (`attn_impl`, `attn_chunk`,
-`remat_group`, `scan_unroll`, `remat`) are kept for a like-for-like config;
-the serving slice of the port reads none of them.
+Fields that select JAX-only machinery (`attn_chunk`, `remat_group`,
+`scan_unroll`) are kept for a like-for-like config and read nowhere in the
+port. `attn_impl` is read only for "flash" (the B1/B2 kernels on every
+attention, raising where they cannot take the input); "xla" and "chunked"
+both let `ops/attention.attend` choose; any other value is refused. The
+serving slice reads neither.
 """
 
 from __future__ import annotations

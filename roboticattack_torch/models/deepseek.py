@@ -87,9 +87,7 @@ def mla(cfg: DeepseekV3Config, x: torch.Tensor, p: Dict, bias: torch.Tensor, cos
     q_pe, k_pe = apply_rope(deinterleave(q[..., dn:]), deinterleave(k_pe[:, None]), cos, sin)
     q = torch.cat([q[..., :dn], q_pe], dim=-1)
     k = torch.cat([k_nope, k_pe.expand(b, h, s, dr)], dim=-1)
-    with span("attention"):
-        count("attention.calls")
-        out = attend(q, k, v, bias)  # plain mha: scale (dn + dr)^-0.5, from q's width
+    out = attend(q, k, v, bias)  # plain mha: scale (dn + dr)^-0.5, from q's width
     return x + out.transpose(1, 2).reshape(b, s, h * dv) @ p["o_w"]
 
 

@@ -31,7 +31,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.attention import attend, causal_bias, padding_bias
 from ..parallel.tensor_parallel import copy_to_model, local_count, reduce_from_model, vocab_embed, vocab_token_logprob
 from ..utils.constants import IGNORE_INDEX
-from ..utils.profiling import count, span
+from ..utils.profiling import count
 from .config import LlamaConfig
 from .param_tree import ParamTree, tree_from_leaves
 from .vit import _normal
@@ -74,15 +74,6 @@ def apply_rope(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor, sin: torch.T
     return q_out, k_out
 
 
-def _attention(cfg: LlamaConfig, q, k, v, bias):
-    """ops.attention.attend under the config's `attn_impl`: the B1/B2
-    kernels wherever they take the input ("flash": always, raising where
-    they cannot), else mha_chunked ("chunked") or plain mha ("xla")."""
-    with span("attention"):
-        count("attention.calls")
-        return attend(q, k, v, bias, cfg.attn_impl, cfg.attn_chunk)
-
-
 def local_heads(cfg: LlamaConfig, mesh=None) -> Tuple[int, int]:
     """(query heads, key/value heads) of one rank: num_heads / tp and
     num_kv_heads / tp; ValueError when tp does not divide both."""
@@ -106,8 +97,7 @@ def decoder_block(cfg: LlamaConfig, x: torch.Tensor, layers: Dict, li: int,
     k = (y @ p["k_w"]).reshape(b, s, hkv, hd).transpose(1, 2)
     v = (y @ p["v_w"]).reshape(b, s, hkv, hd).transpose(1, 2)
     q, k = apply_rope(q, k, cos, sin)
-    attn = _attention(cfg, q, k, v, bias)
-    attn = attn.transpose(1, 2).reshape(b, s, h * hd)
+    attn = attend(q, k, v, bias, cfg.attn_impl).transpose(1, 2).reshape(b, s, h * hd)
     x = x + reduce_from_model(attn @ p["o_w"], mesh)
 
     y = copy_to_model(rms_norm(x, p["mlp_norm"], cfg.rms_eps), mesh)

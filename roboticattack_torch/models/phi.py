@@ -16,10 +16,10 @@ with their biases, o and fc2 row-parallel with their biases added after the
 sum, lm_head's weight and bias split on the vocab.
 
 Attention runs `ops.attention.attend`: the B1/B2 kernels wherever they
-take the input (bf16 on CUDA; Phi-2's head dim 80 included), else
-`mha_chunked` ("chunked") or `mha` ("xla"). `attn_impl="flash"` runs the
-kernels on every call (their plain versions on the CPU), where the JAX
-package refuses it for head dims other than 128.
+take the input (bf16 on CUDA; Phi-2's head dim 80 included), else `mha`
+("xla" or "chunked"). `attn_impl="flash"` runs the kernels on every call
+(their plain versions on the CPU), where the JAX package refuses it for
+head dims other than 128.
 
 Params:
   embed:   [V, D]
@@ -42,7 +42,7 @@ from .config import PhiConfig
 from .convert import getter, stacked_layers
 from .llama import rope_cos_sin, rotate_half
 from ..parallel.tensor_parallel import copy_to_model, local_count, reduce_from_model
-from ..utils.profiling import count, span
+from ..utils.profiling import count
 from .param_tree import ParamTree
 from .vit import _normal, layer_norm
 
@@ -79,9 +79,7 @@ def _phi_block(cfg: PhiConfig, x: torch.Tensor, layers: Dict, li: int,
     q = _apply_partial_rope(heads("q"), cos, sin, cfg.rotary_dim)
     k = _apply_partial_rope(heads("k"), cos, sin, cfg.rotary_dim)
     v = heads("v")
-    with span("attention"):
-        count("attention.calls")
-        attn = attend(q, k, v, bias, cfg.attn_impl, cfg.attn_chunk)
+    attn = attend(q, k, v, bias, cfg.attn_impl)
     attn = reduce_from_model(attn.transpose(1, 2).reshape(b, s, h * hd) @ p["o_w"], mesh) + p["o_b"]
 
     # parallel residual: the MLP reads the same normed input as attention

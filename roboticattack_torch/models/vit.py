@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attend
-from ..utils.profiling import count, span
+from ..utils.profiling import count
 from .config import ViTConfig
 from .param_tree import ParamTree
 
@@ -62,10 +62,7 @@ def _block(cfg: ViTConfig, x: torch.Tensor, p: Dict[str, torch.Tensor], li: int)
     # [B, H, S, hd] views of the packed projection; unbind's backward stacks
     # the three gradients in one op
     q, k, v = qkv.reshape(b, s, 3, h, hd).permute(2, 0, 3, 1, 4).unbind(0)
-    with span("attention"):
-        count("attention.calls")
-        attn = attend(q, k, v)
-    attn = attn.transpose(1, 2).reshape(b, s, d)
+    attn = attend(q, k, v).transpose(1, 2).reshape(b, s, d)
     attn = attn @ p["proj_w"][li] + p["proj_b"][li]
     if cfg.use_layerscale:
         attn = attn * p["ls1"][li]

@@ -1,8 +1,7 @@
 """Attention of every transformer block (`attend`: the hand-written
 B1/B2 kernels wherever they take the input, else plain attention), plain
-attention: QK^T -> fp32 softmax -> PV (`mha`), its query-chunked form
-(`mha_chunked`, `attn_impl="chunked"`), and the additive causal and padding
-biases."""
+attention: QK^T -> fp32 softmax -> PV (`mha`), and the additive causal and
+padding biases."""
 
 from __future__ import annotations
 
@@ -10,7 +9,7 @@ from typing import Optional
 
 import torch
 
-from ..utils.profiling import count
+from ..utils.profiling import count, span
 from .flash_attention import kernel_shape_problem, mha_flash
 
 NEG_INF = -(2.0**30)  # large finite negative; avoids NaN from all-masked rows
@@ -36,23 +35,22 @@ def attend(
     v: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
     impl: str = "xla",
-    chunk: Optional[int] = None,
 ) -> torch.Tensor:
-    """One block's attention, chosen by what the input is: the B1/B2
-    kernels (`mha_flash`) where `takes_kernels`, else `mha_chunked` under
-    impl "chunked" with a chunk, else `mha`. impl "flash" always takes
-    `mha_flash`, which raises on what the kernels refuse (and runs their
-    plain versions on the CPU). Counts `attention.kernel` 0 here (each B1
-    launch adds 1), so a program that launches nothing reads 0."""
+    """One block's attention, in the `attention` span and counted once in
+    `attention.calls`: the B1/B2 kernels (`mha_flash`) where
+    `takes_kernels`, else `mha`. impl "flash" always takes `mha_flash`,
+    which raises on what the kernels refuse (and runs their plain versions
+    on the CPU); "chunked" means the same as "xla". Counts
+    `attention.kernel` 0 here (each B1 launch adds 1), so a program that
+    launches nothing reads 0."""
     if impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl={impl!r} is not supported (one of {', '.join(ATTN_IMPLS)})")
-    count("attention.kernel", 0)
-    if impl == "flash" or takes_kernels(q, k, v, bias):
-        count("attention.chunks")
-        return mha_flash(q, k, v, bias=bias)
-    if impl == "chunked" and chunk is not None:
-        return mha_chunked(q, k, v, bias=bias, chunk=chunk)
-    return mha(q, k, v, bias=bias)
+    with span("attention"):
+        count("attention.calls")
+        count("attention.kernel", 0)
+        if impl == "flash" or takes_kernels(q, k, v, bias):
+            return mha_flash(q, k, v, bias=bias)
+        return mha(q, k, v, bias=bias)
 
 
 def mha(
@@ -67,9 +65,7 @@ def mha(
 
     Scores are accumulated and kept in fp32 (the operands are upcast, so a
     bf16 product is exact and no bf16 rounding of the scores occurs); the
-    probabilities are cast to q.dtype before P·V. Each call counts as one
-    query block of `attention.chunks` (utils/profiling.count)."""
-    count("attention.chunks")
+    probabilities are cast to q.dtype before P·V."""
     b, hq, sq, d = q.shape
     hkv = k.shape[1]
     if scale is None:
@@ -86,30 +82,6 @@ def mha(
     probs = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
     probs = probs / probs.sum(dim=-1, keepdim=True)
     return torch.matmul(probs.to(q.dtype), v)
-
-
-def mha_chunked(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    bias: Optional[torch.Tensor] = None,
-    chunk: int = 64,
-    scale: Optional[float] = None,
-) -> torch.Tensor:
-    """`mha` one block of `chunk` queries at a time (the same fp32 softmax
-    per row); a single block when sq is not a multiple of chunk above it."""
-    b, h, sq, d = q.shape
-    skv = k.shape[2]
-    if sq % chunk != 0 or sq <= chunk:
-        return mha(q, k, v, bias=bias, scale=scale)
-    if bias is not None:
-        bias = bias.expand(b, bias.shape[1], sq, skv)
-    outs = [
-        mha(q[:, :, i : i + chunk], k, v,
-            bias=None if bias is None else bias[:, :, i : i + chunk], scale=scale)
-        for i in range(0, sq, chunk)
-    ]
-    return torch.cat(outs, dim=2)
 
 
 def causal_bias(sq: int, skv: int, device=None) -> torch.Tensor:

@@ -209,7 +209,8 @@ def test_cosine_schedule_matches_jax():
 # ------------------------------------------------------------------ forwards
 @pytest.mark.parametrize("impl,remat", [("flash", False), ("flash", True), ("chunked", False), ("xla", True)])
 def test_llama_apply_matches_jax(jax_params, impl, remat):
-    """S = 128 with attn_chunk 64, so "chunked" runs two query blocks."""
+    """S = 128 with attn_chunk 64, so JAX's "chunked" runs two query blocks
+    (the port's plain `mha` runs whole rows under "chunked" and "xla")."""
     rng = np.random.default_rng(14)
     emb = rng.standard_normal((2, 128, VLA_TINY.llm.hidden_size)).astype(np.float32) * 0.5
     mask = np.ones((2, 128), np.int32)

@@ -59,16 +59,6 @@ class Rerun:
         self.replays += 1
 
 
-@pytest.fixture(autouse=True)
-def one_thread():
-    """The small models' steps on one thread: the suite's workers share the
-    machine's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture
 def standin(monkeypatch):
     """Graphs on the CPU, through Rerun."""

@@ -45,16 +45,6 @@ REAL_STEPS = 4  # post-settle steps after which a replay episode succeeds
 DUMMY = [0, 0, 0, 0, 0, 0, -1]
 
 
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """The tiny model's ops are too small to gain from intra-op threads; one
-    thread a test keeps parallel test workers from contending for cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def coherent_frames(seed, n=24):
     """Recorded frames as a bounded random walk (chip_smoke.coherent_walk)."""
     return chip_smoke.coherent_walk(np.random.default_rng(seed), n)

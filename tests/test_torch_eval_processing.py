@@ -13,7 +13,6 @@ C library's sinf, as the kernel does), so they equal TF bit for bit at 256->256,
 import numpy as np
 import jax
 import pytest
-import torch
 
 tf = pytest.importorskip("tensorflow")
 
@@ -28,16 +27,6 @@ from roboticattack_torch.ops.patch_ops import simulation_paste_patch
 from roboticattack_torch.utils import gripper as tgrip
 
 tf.config.set_visible_devices([], "GPU")
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """The tiny model's ops are too small to gain from intra-op threads; one
-    thread a test keeps parallel test workers from contending for cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def frame(kind, seed, size=256):

@@ -108,12 +108,14 @@ def test_backward_plain_is_the_written_out_pallas_rule():
 
 
 @pytest.mark.parametrize("s,chunk", [(128, 64), (192, 64), (100, 64), (64, 64)])
-def test_mha_chunked_matches_jax(s, chunk):
+def test_mha_matches_jax_mha_chunked(s, chunk):
+    """The port's one plain path (`mha`, whole rows) against JAX's
+    query-chunked attention, which configs with attn_impl "chunked" run."""
     q, k, v, _, bias = _inputs(2, 2, s, 16, seed=s, pad=6)
     want = np.asarray(jattn.mha_chunked(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                         bias=jnp.asarray(bias), chunk=chunk))
-    got = tattn.mha_chunked(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
-                            bias=torch.from_numpy(bias), chunk=chunk).numpy()
+    got = tattn.mha(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                    bias=torch.from_numpy(bias)).numpy()
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
 
 
@@ -278,17 +280,17 @@ def _dispatch_inputs(device="cuda", dtype=torch.bfloat16, d=80, hq=8, hkv=2, s=4
 def test_dispatch_takes_the_kernels_by_what_it_sees(kw, takes, monkeypatch):
     """ops.attention.takes_kernels by device, dtype, head dim, group, S and
     bias shape, and attend's route: mha_flash where it takes the kernels,
-    else mha_chunked under "chunked" or mha; "flash" always mha_flash."""
+    else mha under "chunked" and "xla" alike; "flash" always mha_flash."""
     q, k, v, bias = _dispatch_inputs(**kw)
     assert tattn.takes_kernels(q, k, v, bias) is takes
     calls = []
-    for name in ("mha_flash", "mha_chunked", "mha"):
+    for name in ("mha_flash", "mha"):
         monkeypatch.setattr(tattn, name, lambda *a, _n=name, **k: calls.append(_n))
-    for impl, plain in (("chunked", "mha_chunked"), ("xla", "mha"), ("flash", "mha_flash")):
-        tattn.attend(q, k, v, bias, impl, 64)
+    for impl, plain in (("chunked", "mha"), ("xla", "mha"), ("flash", "mha_flash")):
+        tattn.attend(q, k, v, bias, impl)
         assert calls.pop() == ("mha_flash" if takes else plain)
     with pytest.raises(ValueError, match="attn_impl='pallas' is not supported"):
-        tattn.attend(q, k, v, bias, "pallas", 64)
+        tattn.attend(q, k, v, bias, "pallas")
 
 
 def test_the_recorder_holds_attention_kernel_under_an_open_outer_step(monkeypatch):
@@ -306,7 +308,7 @@ def test_the_recorder_holds_attention_kernel_under_an_open_outer_step(monkeypatc
             fa.flash_attention_fwd(q, k, v)  # no open outer step
             with profiling.outer_step("attack.step", "cpu"):
                 tattn.attend(q.float(), k.float(), v.float())
-                assert profiling.RECORDER.steps[-1].counters == {"attention.kernel": 0, "attention.chunks": 1}
+                assert profiling.RECORDER.steps[-1].counters == {"attention.kernel": 0, "attention.calls": 1}
                 for _ in range(3):
                     fa.flash_attention_fwd(q, k, v)
         (step,) = profiling.recorded_steps()

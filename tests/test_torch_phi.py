@@ -43,7 +43,9 @@ def jax_phi():
 @pytest.mark.parametrize("masked", [False, True])
 def test_phi_apply_matches_jax(jax_phi, attn_impl, chunk, masked):
     """fp32 logits within 1e-5 relative (of the logits' scale), with and
-    without a padding mask, for each attention path."""
+    without a padding mask, against each of JAX's attention paths (its
+    query-chunked one at two chunks and its plain one); the port runs its
+    plain `mha` under both "chunked" and "xla"."""
     cfg, jcfg = _cfgs(attn_impl=attn_impl, attn_chunk=chunk)
     rng = np.random.default_rng(0)
     ids = rng.integers(2, SMALL["vocab_size"], (2, 12))

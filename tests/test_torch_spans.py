@@ -6,6 +6,7 @@ counted as the step's structure under one, on the profiler's clock, and
 read by the benchmark's per-layer readers."""
 
 import dataclasses
+import functools
 import importlib.util
 import os
 import statistics
@@ -41,12 +42,12 @@ def empty_recorder():
     profiling.RECORDER.clear()
 
 
-def attack(family, remat=True, chunk=64):
+def attack(family, remat=True, attn_impl="chunked"):
     """(run, cfg): run() takes one UADA outer step of INNER inner steps of
     the family's small VLA from fixed weights, batch, draws and patch, and
     returns (patch, m, v, losses)."""
     cfg = vla_config(FAMILIES[family]())
-    cfg = dataclasses.replace(cfg, remat=remat, llm=dataclasses.replace(cfg.llm, attn_chunk=chunk))
+    cfg = dataclasses.replace(cfg, remat=remat, llm=dataclasses.replace(cfg.llm, attn_impl=attn_impl))
     params = init_vla_params(torch.Generator().manual_seed(0), cfg)
     spec = engine.AttackSpec(objective="uada", inner_loop=INNER, optimizer="adamW")
     step = engine.make_attack_step(spec, cfg, None, range(7))
@@ -70,6 +71,14 @@ def traced(family, **kw):
         run()
     (step,) = profiling.recorded_steps()
     return step, cfg, prof
+
+
+@functools.lru_cache(maxsize=None)
+def traced_step(family, remat, attn_impl):
+    """traced()'s step and config, made once a process for each argument."""
+    profiling.RECORDER.clear()
+    step, cfg, _ = traced(family, remat=remat, attn_impl=attn_impl)
+    return step, cfg
 
 
 def tower_blocks(cfg):
@@ -102,11 +111,17 @@ def test_without_a_profiler_the_step_is_untouched(family, monkeypatch):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("chunk", [64, 16], ids=["chunk64", "chunk16"])
+@pytest.mark.parametrize("attn_impl", ["chunked", "xla"])
 @pytest.mark.parametrize("remat", [True, False], ids=["remat", "no_remat"])
 @pytest.mark.parametrize("family", FAMILIES)
-def test_spans_nest_and_counters_follow_the_structure(family, remat, chunk):
-    step, cfg, _ = traced(family, remat=remat, chunk=chunk)
+def test_spans_nest_and_counters_follow_the_structure(family, remat, attn_impl):
+    """The structure below under either plain attn_impl, and the same spans
+    and counters under both ("chunked" means "xla" in the port)."""
+    step, cfg = traced_step(family, remat, attn_impl)
+    other, _ = traced_step(family, remat, "xla" if attn_impl == "chunked" else "chunked")
+    assert ([(s.name, s.parent, s.recompute) for s in step.spans]
+            == [(s.name, s.parent, s.recompute) for s in other.spans])
+    assert step.counters == other.counters
     spans = step.spans
     children = {i: [j for j, s in enumerate(spans) if s.parent == i] for i in range(len(spans))}
 
@@ -129,15 +144,10 @@ def test_spans_nest_and_counters_follow_the_structure(family, remat, chunk):
         assert sorted(spans[j].name for j in under) == (
             sorted(["vla.vision"] + ["attention"] * (2 * towers + layers)) if remat else [])
 
-    seq = cfg.dino.num_patches + PAD_TO  # the patch tokens sit after BOS
     runs = (3, 2) if remat else (1, 1)
     c = {k: v / INNER for k, v in step.counters.items()}
     assert c["blocks.vision"] == runs[0] * towers and c["blocks.llm"] == runs[1] * layers
     assert c["attention.calls"] == c["blocks.vision"] + c["blocks.llm"] == len(step.named("attention")) / INNER
-    if seq % chunk:  # mha_chunked falls back to one whole-row block
-        assert c["attention.chunks"] == c["attention.calls"]
-    else:
-        assert c["attention.chunks"] == c["blocks.vision"] + c["blocks.llm"] * seq // chunk
 
 
 def _within(spans, j, ancestor):

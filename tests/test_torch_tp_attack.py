@@ -92,14 +92,6 @@ STEPS = {
 JAX_STEPS = [name for name, c in STEPS.items() if c[5] is not None]
 
 
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _target(spec, maskidx):
     return build_tma_target_tokens(np.zeros(7), maskidx) if spec["objective"] == "tma" else None
 

@@ -79,14 +79,6 @@ CASES = {  # name -> (weights, group size, decode options)
 JAX_TP2 = ("fp32", "int4", "jacobi")  # also against JAX's tp=2 mesh (all against dp2 x tp2)
 
 
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _j_tree(cooked, quant, gs):
     return cooked if quant is None else j_quantize(cooked, xp=np, mode=quant, group_size=gs or 64)
 

@@ -85,14 +85,6 @@ def leave_no_process_group():
     distributed.shutdown()
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 @pytest.fixture(scope="module")
 def setup():
     params = jax.device_get(jinit_vla_params(jax.random.key(0), J_TINY))

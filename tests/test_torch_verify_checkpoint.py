@@ -38,16 +38,6 @@ import chip_smoke
 pytest.importorskip("transformers")
 
 
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """The tiny model's ops are too small to gain from intra-op threads; one
-    thread a test keeps parallel test workers from contending for cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def write_tiny(path, seed=0, edit=None):
     """VLA_TINY's random weights, with O(1) LayerScale (real DINOv2
     checkpoints carry such values; the init's 1e-5 would deaden both
