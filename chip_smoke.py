@@ -18,7 +18,7 @@ Phases, each of which fails the run (non-zero exit, no result line) on error:
   4. slice   — the int4 serving path end to end: random seeded OpenVLA-7B
                weights -> int4 -> VLAPolicy -> DynamicBatcher ->
                ActionServer on 127.0.0.1, answering concurrent HTTP requests;
-               the kernel launch count of that run; the same batch through
+               the B4 and the norm kernels' launch counts of that run; the same batch through
                the plain int4 path; prefill/tail times and peak memory;
   options — the serving options at bs 8 on the same int4 policy: the int8
                and packed-int4 KV caches (prefill logits bit-equal to the
@@ -41,18 +41,26 @@ Phases, each of which fails the run (non-zero exit, no result line) on error:
                across two launches, with times, bounds and the
                scaled_dot_product_attention yardstick at the attack shape and
                the cells' shapes;
+  norm    — the norm kernels (LayerNorm and RMSNorm: forward, backward and
+               the weight gradients) against the plain chain's autograd at the
+               benchmark cells' seven norm shapes and the 7B trainer's, each
+               bit-equal across two launches, with times (each launch cold in
+               L2) beside their byte bounds, the plain chain and the
+               F.layer_norm / F.rms_norm yardstick;
   6. attack  — the attack slice end to end: `cli.attack` (UADA, OpenVLA-7B
                at full width and depth, bf16, random weights, dummy data)
                in-process, the B1/B2 kernels its device trace shows run and
                those launched from the host (steps 2-3 replay the step's CUDA
-               graph), losses and patches; then one outer step's launches,
+               graph), and the norm kernels' host launches (every norm of
+               every step takes them), losses and patches; then one outer
+               step's launches,
                the inner-step time, the device breakdown of a replayed outer
                step with its B1/B2 kernels and peak memory; a captured and a
                replayed outer step bit-equal to eager steps from the same
                state, for OpenVLA-7B and for the Moonlight-16B-A3B VLA at full
                width and depth; TMA (with the val and clean-filter steps) and
                UPA steps; one inner step's loss and patch gradient through
-               the kernels against the plain attention path;
+               the kernels against the plain attention and norm path;
   7. data    — the RLDS data plane: the port's writer makes 24 episodes x 16
                steps of 256x256 JPEG frames in the bridge schema under
                build/; the native C++ reader (DATA_LAYER; built against the
@@ -100,7 +108,7 @@ Phases, each of which fails the run (non-zero exit, no result line) on error:
                --profile, then N=2 on the one card over gloo with gspmd and
                with exact; per run the ranks' patch hashes (equal), rank 0's
                files alone, TRAIN_loss == TRAIN_mse_distance (no +1/CE), B1/B2
-               launches per rank, per-rank peak memory and outer-step ms
+               and norm launches per rank, per-rank peak memory and outer-step ms
                (two processes sharing one card: no scaling measure), the
                profile's B1/B2 events, N=2's first loss against N=1's.
  12. tp      — tensor- and data-parallel serving of the int4 7B from the
@@ -136,7 +144,8 @@ Phases, each of which fails the run (non-zero exit, no result line) on error:
                process's (1 - cosine) than twice the one process's own
                distance from the f32 gradient of the same weights and step
                (run in the phase), one patch SHA-256 across the ranks,
-               64 + 3 x 49 / 32 + 49 B1 / B2 launches (decoder + towers),
+               64 + 3 x 49 / 32 + 49 B1 / B2 launches (decoder + towers)
+               and twice those norm launches plus the final norm's,
                the collectives it recorded equal,
                as a multiset, to the audit of the same rank and step on meta
                tensors, its leaves' bytes equal to the audit's, no gather of
@@ -151,12 +160,13 @@ Phases, each of which fails the run (non-zero exit, no result line) on error:
                lr 2e-5, 4 steps on one dummy batch of 8: step 1 (lr 0)
                bit-equal, the loss falling strictly over steps 2-4, the
                towers bit-equal, 64 + 2 x 49 / 32 B1/B2 launches a step
-               (the frozen towers' blocks run twice, forward only), the peak
+               (the frozen towers' blocks run twice, forward only) and the
+               norm kernels' (the decoder's weight gradients too), the peak
                under 76 GiB beside the reckoning from the leaves, the share
                of LLM elements step 2 changed; per step wall ms, one step's
                forward+backward and update ms and its device profile; the
-               loss and five leaves' gradients through the kernels against
-               plain attention; the tiny train-then-attack on the card (the
+               loss and eight leaves' gradients (three of norm weights)
+               through the kernels against plain attention and norms; the tiny train-then-attack on the card (the
                JAX integration test's thresholds, and its int4 policies with
                int4_kernel unset where the kernel cannot run: an f32 model,
                groups of 16; the kernel off, 7 finite actions); then a
@@ -165,7 +175,7 @@ Phases, each of which fails the run (non-zero exit, no result line) on error:
                gloo (the 7B's widths with 2 LLM layers, bs 8 global, 3
                steps, ddp then fsdp): exit 0, one parameter SHA-256 across
                ranks and strategies, losses within 1e-2 of one process,
-               B1/B2 on every rank.
+               B1/B2 and norm launches on every rank.
 Then one JSON line of per-kernel numbers, the card line, and the result line.
 
 Imports nothing of JAX or of the JAX package.
@@ -210,6 +220,7 @@ from roboticattack_torch.models.vlm import init_vla_params, param_count, vla_for
 from roboticattack_torch.ops import attention as attention_ops
 from roboticattack_torch.ops import flash_attention as fa
 from roboticattack_torch.ops import kernel_build
+from roboticattack_torch.ops import norm as norm_ops
 from roboticattack_torch.ops.attention import causal_bias, padding_bias
 from roboticattack_torch.ops.q4_matmul import (
     _unpack_nibbles,
@@ -280,7 +291,7 @@ def ptxas_report(log: str) -> str:
     out, name, frame = [], "?", ""
     for ln in log.splitlines():
         if "Function properties for" in ln:
-            m = re.search(r"\d+((?:flash|q4)\w*?kernel)(I\w*?EE)?", ln)
+            m = re.search(r"\d+((?:flash|q4|norm)\w*?kernel)(I\w*?EE)?", ln)
             name = m.group(1) + (m.group(2) or "") if m else ln.split()[-1]
         elif "stack frame" in ln:
             frame = ln.strip()
@@ -693,6 +704,8 @@ def phase_slice(card: str) -> dict:
     cfg = policy.cfg
     steps, layers = 6, cfg.llm.num_layers
     per_decode = steps * layers * 7
+    # the towers' 2 norms a block, then the decoder's 2 a layer and its final norm over the prefill and each step
+    norms_per_decode = 2 * tower_blocks(cfg) + (steps + 1) * (2 * layers + 1)
     log(f"slice: {MODEL} int4 policy built on the card in {load_s:.1f} s; "
         f"int4_kernel={policy.int4_kernel}; weights resident "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
@@ -716,12 +729,14 @@ def phase_slice(card: str) -> dict:
         url = f"http://{host}:{port}/act"
         batches_before = server.batcher.stats["batches"]
         reset_launches()  # the main path's count starts here
+        norm_ops.reset_launches()
         t = time.perf_counter()
         try:
             concurrent_posts(url, frames, tasks)
         finally:
             serve_s = time.perf_counter() - t
             launches = dict(q4_matmul.launches)  # read right after the main path
+            norms = dict(norm_ops.launches)
         decodes = server.batcher.stats["batches"] - batches_before
         bucket_counts = server.batcher.bucket_counts()
     finally:
@@ -730,8 +745,14 @@ def phase_slice(card: str) -> dict:
         f"in {serve_s:.3f} s over {decodes} decode call(s) (buckets {bucket_counts})")
     log(f"slice: q4_matmul launches in the served run {launches}; expected "
         f"{per_decode} grouped per decode call ({steps} steps x {layers} layers x 7) x {decodes}")
+    want_norm = {"fwd": norms_per_decode * decodes, "bwd": 0, "wgrad": 0}
+    log(f"slice: norm kernels launched in the served run {norms}; expected {want_norm} ({norms_per_decode} a "
+        f"decode call: 2 x {tower_blocks(cfg)} tower blocks + {steps + 1} passes (the prefill and {steps} steps) "
+        f"x (2 x {layers} layers + the final norm))")
     if launches != {"grouped": per_decode * decodes, "dense": 0} or decodes < 1:
         raise AssertionError(f"launch count {launches} != {per_decode} x {decodes} grouped")
+    if norms != want_norm:
+        raise AssertionError(f"served run's norm launch count {norms} != {want_norm}")
 
     # the same batch through the kernel tail and through the plain int4 tail
     kern = policy.decode(frames, tasks)
@@ -747,7 +768,7 @@ def phase_slice(card: str) -> dict:
     device_breakdown(policy, frames, tasks, 7, timings[8][2], card)
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"slice: peak torch.cuda.max_memory_allocated while serving = {peak:.2f} GiB [{card}]")
-    return {"launches": launches, "timings": timings, "peak_gib": peak,
+    return {"launches": launches, "norm_launches": norms, "timings": timings, "peak_gib": peak,
             "policy": policy, "frames": frames, "tasks": tasks, "base": kern, "drift": drift}
 
 
@@ -967,6 +988,21 @@ def host_launches(calls: int, inner: int, per_inner: dict) -> dict:
     return {k: v * (inner * min(calls, 1) + (calls >= 2)) for k, v in per_inner.items()}
 
 
+def norm_want(b1b2: dict, forwards: int, backwards: int, trained: bool = False) -> dict:
+    """The norm kernels' host launches (ops.norm.launches) on OpenVLA-7B
+    beside its B1/B2 host launches `b1b2`: each of its blocks, tower and
+    decoder, holds 2 norms and launches one B1 a run and one B2 a backward,
+    and each of the `forwards` decoder forwards runs the final norm once
+    more, `backwards` of them differentiated. The attack's norm weights
+    take no gradient (no weight-gradient launch); the trainer's (`trained`)
+    take one at each norm its backward reaches. Off the card the plain
+    norms run and launch nothing."""
+    if torch.device(DEVICE).type != "cuda":
+        return {"fwd": 0, "bwd": 0, "wgrad": 0}
+    bwd = 2 * b1b2["bwd"] + backwards
+    return {"fwd": 2 * b1b2["fwd"] + forwards, "bwd": bwd, "wgrad": bwd if trained else 0}
+
+
 # B1's kernel, and B2's rows and columns kernels (one each a B2 launch), by
 # the start of their names in a device trace
 B1B2_KERNELS = ("flash_fwd_kernel<", "flash_bwd_rows_kernel<", "flash_bwd_cols_kernel<")
@@ -975,6 +1011,16 @@ B1B2_KERNELS = ("flash_fwd_kernel<", "flash_bwd_rows_kernel<", "flash_bwd_cols_k
 def b1b2_kernel_runs(launches: dict) -> dict:
     """The B1/B2 kernels a device trace shows for `launches`, by name."""
     return dict(zip(B1B2_KERNELS, (launches["fwd"], launches["bwd"], launches["bwd"])))
+
+
+# the norm kernels' forward, backward and the weight gradients' two passes
+NORM_KERNELS = ("norm_fwd_kernel<", "norm_bwd_kernel<", "norm_wgrad_part_kernel<", "norm_wgrad_sum_kernel")
+
+
+def norm_kernel_runs(launches: dict) -> dict:
+    """The norm kernels a device trace shows for ops.norm.launches
+    `launches`, by name."""
+    return dict(zip(NORM_KERNELS, (launches["fwd"], launches["bwd"], launches["wgrad"], launches["wgrad"])))
 
 
 def device_kernel_runs(prof, words) -> dict:
@@ -1156,6 +1202,126 @@ def phase_flash(bw: float, card: str) -> dict:
     return {"timing": timing, "errs": errs, "cells": cells}
 
 
+# the benchmark cells' norms (vlabench/): label, LayerNorm or RMSNorm, [rows, width] at bs 8
+CELL_NORMS = [
+    ("DINOv2 ViT-L/14 with registers", "layer", (2088, 1024)),
+    ("SigLIP so400m/14", "layer", (2048, 1152)),
+    ("CLIP ViT-L/14 at 336 px", "layer", (4616, 1024)),
+    ("phi-2 decoder", "layer", (4864, 2560)),
+    ("Mistral-7B decoder", "rms", (2304, 4096)),
+    ("Moonlight-16B-A3B decoder", "rms", (2304, 2048)),
+    ("Moonlight-16B-A3B MLA kv_norm", "rms", (2304, 512)),
+]
+NORM_EPS = 1e-5
+L2_BYTES = 50 * 2**20  # the H100's L2
+
+
+def norm_bounds(rows: int, n: int, layer: bool, bw: float) -> dict:
+    """Least times of the norm kernels at [rows, n] bf16: the forward reads x
+    and the weights and writes y and the row statistics, the backward reads
+    x, dy, the weight and the statistics and writes dx; each byte once, over
+    the memory rate."""
+    stats = rows * 4 * (2 if layer else 1)
+    out = {}
+    for kind, nbytes in (("fwd", 4 * rows * n + 2 * n * (2 if layer else 1) + stats),
+                         ("bwd", 6 * rows * n + 2 * n + stats)):
+        out[kind] = dict(bytes=nbytes, bound_ms=nbytes / bw * 1e3, bound_by="bytes")
+    return out
+
+
+def cold_ms(fn, inputs: list) -> float:
+    """device_ms of fn(*inputs[i % len(inputs)]) over the i-th call, each
+    call's output held until the graph is timed: with enough input copies
+    every launch reads, and writes, memory that the launches between have
+    pushed out of L2, as a launch in the step does."""
+    held = []
+    ms = device_ms(lambda i: held.append(fn(*inputs[i % len(inputs)])))
+    held.clear()
+    return ms
+
+
+def phase_norm(bw: float, card: str) -> dict:
+    """The norm kernels against their plain versions on the card at each
+    benchmark cell's norm shape and the 7B trainer's: y, dx, and (the
+    weights requiring grad, as the trainer's do) dweight and dbias within
+    2^-7 x max|plain| of the plain chain's autograd; two launches of each
+    bit-equal. Timed in CUDA-graph replay over enough copies of the inputs
+    that each launch reads HBM, not L2, beside their byte bounds, the plain
+    chain and one library call (F.layer_norm / F.rms_norm, which the port
+    never calls; backward = forward + backward minus forward)."""
+    cfg = get_config(MODEL)
+    trainer = (TRAIN_BS * (cfg.num_patches + next(dummy_batches(TRAIN_BS)).input_ids.shape[1]), cfg.llm.hidden_size)
+    shapes = list(CELL_NORMS)
+    if trainer not in [shape for _, kind, shape in shapes if kind == "rms"]:
+        shapes.append(("OpenVLA-7B trainer decoder", "rms", trainer))
+    log(f"norm: the 7B trainer's decoder norms are RMSNorms on {list(trainer)} (bs {TRAIN_BS}); weight "
+        f"gradients checked at every shape")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {}
+    for label, kind, (rows, n) in shapes:
+        layer = kind == "layer"
+        bounds = norm_bounds(rows, n, layer, bw)
+        copies = min(20, max(2, math.ceil(3 * L2_BYTES / bounds["fwd"]["bytes"])))
+        xs, dys = ([torch.randn((rows, n), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(copies)]
+                   for _ in range(2))
+        x, dy = xs[0], dys[0]
+        w = (1.0 + 0.2 * torch.randn(n, generator=gen, device="cuda")).to(torch.bfloat16)
+        b = (0.2 * torch.randn(n, generator=gen, device="cuda")).to(torch.bfloat16) if layer else None
+        plain = ((lambda t: norm_ops.layer_norm_plain(t, w, b, NORM_EPS)) if layer
+                 else (lambda t: norm_ops.rms_norm_plain(t, w, NORM_EPS)))
+        library = ((lambda t: F.layer_norm(t, (n,), w, b, NORM_EPS)) if layer
+                   else (lambda t: F.rms_norm(t, (n,), w, NORM_EPS)))
+        runs = []
+        for _ in range(2):
+            y, mean, rstd = norm_ops.norm_fwd(x, w, b, NORM_EPS)
+            runs.append((y, mean, rstd, norm_ops.norm_bwd(x, dy, w, mean, rstd),
+                         *norm_ops.norm_wgrad(x, dy, mean, rstd)))
+        torch.cuda.synchronize()
+        if not all(torch.equal(p, q) for p, q in zip(*runs) if p is not None):
+            raise AssertionError(f"norm {label}: two launches on the same inputs differ")
+        y, _, _, dx, dw, db = runs[0]
+        leaves = [t.detach().requires_grad_() for t in (x, w, b) if t is not None]
+        y_plain = (norm_ops.layer_norm_plain(*leaves, NORM_EPS) if layer
+                   else norm_ops.rms_norm_plain(*leaves, NORM_EPS))
+        grads_plain = torch.autograd.grad(y_plain, leaves, dy)
+        errs = {"fwd": check_close(f"norm fwd {label}", y, y_plain),
+                "bwd": check_close(f"norm bwd {label}", dx, grads_plain[0]),
+                "dweight": check_close(f"norm dweight {label}", dw, grads_plain[1])}
+        if layer:
+            errs["dbias"] = check_close(f"norm dbias {label}", db, grads_plain[2])
+
+        def fwd_bwd(fn):
+            def run(xi, dyi):
+                t = xi.detach().requires_grad_()
+                return torch.autograd.grad(fn(t), t, dyi)
+            return run
+
+        pairs = list(zip(xs, dys))
+        plain_fwd, lib_fwd = cold_ms(lambda xi, _: plain(xi), pairs), cold_ms(lambda xi, _: library(xi), pairs)
+        mean, rstd = runs[0][1:3]
+        timing = {
+            "fwd": dict(ms=cold_ms(lambda xi, _: norm_ops.norm_fwd(xi, w, b, NORM_EPS), pairs), plain_ms=plain_fwd,
+                        library_ms=lib_fwd, **bounds["fwd"]),
+            "bwd": dict(ms=cold_ms(lambda xi, dyi: norm_ops.norm_bwd(xi, dyi, w, mean, rstd), pairs),
+                        plain_ms=cold_ms(fwd_bwd(plain), pairs) - plain_fwd,
+                        library_ms=cold_ms(fwd_bwd(library), pairs) - lib_fwd, **bounds["bwd"]),
+        }
+        for way, t in timing.items():
+            log(f"norm: {label} {kind} [{rows}, {n}] {way}: kernel_ms={t['ms']:.5f} plain_ms={t['plain_ms']:.5f} "
+                f"library_ms={t['library_ms']:.5f} ({'F.layer_norm' if layer else 'F.rms_norm'}"
+                f"{'' if way == 'fwd' else ', forward+backward minus forward'}; CUDA-graph replay over {copies} "
+                f"input copies, cold in L2) bound_ms={t['bound_ms']:.5f} ({t['bytes'] / 1e6:.2f} MB) "
+                f"x{t['ms'] / t['bound_ms']:.2f} of the bound, max_abs_err={errs[way]:.4g} (tol 2^-7 x max|plain|; "
+                f"two launches bit-equal) [{card}]")
+        dbias = f", dbias max_abs_err={errs['dbias']:.4g}" if layer else ""
+        log(f"norm: {label} {kind} [{rows}, {n}] weight gradients: dweight max_abs_err={errs['dweight']:.4g}{dbias} "
+            f"(tol 2^-7 x max|plain| each, against the plain chain's autograd; two launches bit-equal)")
+        out[label] = {"kind": kind, "shape": [rows, n], "errs": errs, "timing": timing, "copies": copies}
+        del xs, dys, x, dy, y, dx, runs, leaves, y_plain, grads_plain, pairs
+        torch.cuda.empty_cache()
+    return out
+
+
 def attack_flops(cfg, bs: int, text_len: int) -> float:
     """Matmul FLOPs of one inner step derived from the config: the forward,
     plus the input gradient (1x a linear layer's forward, 2x an attention
@@ -1184,31 +1350,33 @@ def attack_flops(cfg, bs: int, text_len: int) -> float:
 
 
 @contextlib.contextmanager
-def plain_attention():
-    """Every attention of the block through plain PyTorch: the dispatch's
-    kernel test (ops.attention.takes_kernels) answers no, so a config with
-    attn_impl "xla" runs ops.attention.mha in the towers and the decoder."""
-    saved = attention_ops.takes_kernels
-    attention_ops.takes_kernels = lambda *a: False
+def plain_blocks():
+    """Every attention and norm of the blocks through plain PyTorch: the
+    dispatches' kernel tests (ops.attention.takes_kernels,
+    ops.norm.takes_kernel) answer no, so a config with attn_impl "xla" runs
+    ops.attention.mha and the plain norm chains in the towers and the
+    decoder."""
+    saved = attention_ops.takes_kernels, norm_ops.takes_kernel
+    attention_ops.takes_kernels = norm_ops.takes_kernel = lambda *a: False
     try:
         yield
     finally:
-        attention_ops.takes_kernels = saved
+        attention_ops.takes_kernels, norm_ops.takes_kernel = saved
 
 
 def step_against_plain(label: str, spec, cfg, params, patch, batch, labels, draws) -> tuple:
-    """One inner step's loss and patch gradient through the kernels (B1/B2,
-    towers and decoder) against the plain attention path (attn_impl="xla"
-    under plain_attention) on the same inputs: the loss within 1e-2
-    relative, the gradient's cosine at least 0.99. Returns (relative loss
-    difference, cosine)."""
+    """One inner step's loss and patch gradient through the kernels (B1/B2
+    and the norms, towers and decoder) against the plain path
+    (attn_impl="xla" under plain_blocks: plain attention and norms) on the
+    same inputs: the loss within 1e-2 relative, the gradient's cosine at
+    least 0.99. Returns (relative loss difference, cosine)."""
     xla_cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, attn_impl="xla"))
     loss_f, _, grad_f = engine.patch_loss_and_grad(spec, cfg, params, patch, batch, labels, draws)
-    with plain_attention():
+    with plain_blocks():
         loss_x, _, grad_x = engine.patch_loss_and_grad(spec, xla_cfg, params, patch, batch, labels, draws)
     rel = abs(loss_f.item() - loss_x.item()) / abs(loss_x.item())
     cos = F.cosine_similarity(grad_f.flatten(), grad_x.flatten(), dim=0).item()
-    log(f"{label}: kernel path vs plain attention (attn_impl='xla'), bs {batch.images.shape[0]}: loss "
+    log(f"{label}: kernel path vs plain attention and norms (attn_impl='xla'), bs {batch.images.shape[0]}: loss "
         f"{loss_f.item():.6g} vs {loss_x.item():.6g} (rel diff {rel:.3g}, tol 1e-2); patch-gradient cosine "
         f"{cos:.6f} (tol 0.99)")
     if not (rel <= 1e-2 and cos >= 0.99):
@@ -1264,14 +1432,18 @@ def phase_attack(card: str) -> dict:
                                  "bwd": CLI_ITERS * INNER * per_inner["bwd"]})
     host = host_launches(CLI_ITERS, INNER, per_inner)
     want = {"fwd": host["fwd"] + evals * (layers + towers), "bwd": host["bwd"]}
+    passes = host_launches(CLI_ITERS, INNER, {"n": 1})["n"]  # inner steps run from the host
+    want_norm = norm_want(want, passes + evals, passes)
     try:
         torch.cuda.reset_peak_memory_stats()
         fa.reset_launches()  # the main path's count starts here
+        norm_ops.reset_launches()
         t = time.perf_counter()
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             attack_cli.main(argv)
             torch.cuda.synchronize()
         launches = dict(fa.flash_attention.launches)  # read right after the main path
+        norms = dict(norm_ops.launches)
         cli_s = time.perf_counter() - t
         ran = device_kernel_runs(prof, B1B2_KERNELS)
         del prof
@@ -1283,10 +1455,15 @@ def phase_attack(card: str) -> dict:
             f"{layers} + {towers} B2, two kernels each) + {evals} val forwards x ({layers} + {towers}) B1)")
         log(f"attack: B1/B2 launched from the host {launches}; expected {want} (step 1's {INNER} inner steps "
             f"eager, step 2's graph captured from one, replays launch nothing from the host; the val forwards)")
+        log(f"attack: norm kernels launched from the host {norms}; expected {want_norm} (2 norms a block: twice "
+            f"the B1/B2 launches, and the decoder's final norm once a forward from the host, {passes} inner steps "
+            f"+ {evals} val forwards; the weights take no gradient)")
         if ran != ran_want:
             raise AssertionError(f"CLI B1/B2 kernels on the device {ran} != {ran_want}")
         if launches != want:
             raise AssertionError(f"CLI launch count {launches} != {want}")
+        if norms != want_norm:
+            raise AssertionError(f"CLI norm launch count {norms} != {want_norm}")
         cli_peak = torch.cuda.max_memory_allocated() / 2**30
         lines = [json.loads(ln) for ln in open(os.path.join(out_dir, "run-metrics.jsonl"))]
         losses = [ln["TRAIN_loss"] for ln in lines if "TRAIN_loss" in ln]
@@ -1329,13 +1506,16 @@ def phase_attack(card: str) -> dict:
     state = fresh_state()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
+    norm_ops.reset_launches()
     state, metrics = step(params, state, batch, 2e-3, True, draws_for(spec))
     torch.cuda.synchronize()
-    one = dict(fa.flash_attention.launches)
+    one, one_norm = dict(fa.flash_attention.launches), dict(norm_ops.launches)
     want_one = {"fwd": INNER * (2 * layers + 3 * towers), "bwd": INNER * (layers + towers)}
-    log(f"attack: one outer step (UADA, {INNER} inner) launched B1/B2 {one}; expected {want_one}")
-    if one != want_one:
-        raise AssertionError(f"outer-step launch count {one} != {want_one}")
+    want_one_norm = norm_want(want_one, INNER, INNER)
+    log(f"attack: one outer step (UADA, {INNER} inner) launched B1/B2 {one}; expected {want_one}; norm kernels "
+        f"{one_norm}, expected {want_one_norm}")
+    if one != want_one or one_norm != want_one_norm:
+        raise AssertionError(f"outer-step launch count {one} != {want_one} or norms {one_norm} != {want_one_norm}")
     times = []
     for _ in range(4):
         draws = draws_for(spec)
@@ -1363,14 +1543,19 @@ def phase_attack(card: str) -> dict:
     found = device_profile(run_step, inner_ms * INNER, f"attack: one UADA outer step ({INNER} inner)",
                            card, match=("flash_fwd_kernel", "flash_bwd_", "nvjet", "gemm"))
     fa.reset_launches()
+    norm_ops.reset_launches()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         run_step()
-    replayed = dict(fa.flash_attention.launches)
+    replayed, replayed_norm = dict(fa.flash_attention.launches), dict(norm_ops.launches)
     ran = device_kernel_runs(prof, B1B2_KERNELS)
+    norm_ran = device_kernel_runs(prof, NORM_KERNELS)
     log(f"attack: one more outer step (a replay of the step's graph) ran B1/B2 kernels {ran} on the device, "
-        f"expected {b1b2_kernel_runs(want_one)}; B1/B2 launched from the host {replayed}")
-    if ran != b1b2_kernel_runs(want_one) or any(replayed.values()):
-        raise AssertionError(f"replayed outer step: B1/B2 kernels {ran}, host launches {replayed}")
+        f"expected {b1b2_kernel_runs(want_one)}, and norm kernels {norm_ran}, expected "
+        f"{norm_kernel_runs(want_one_norm)}; launched from the host B1/B2 {replayed}, norms {replayed_norm}")
+    if (ran != b1b2_kernel_runs(want_one) or any(replayed.values()) or norm_ran != norm_kernel_runs(want_one_norm)
+            or any(replayed_norm.values())):
+        raise AssertionError(f"replayed outer step: B1/B2 kernels {ran}, norm kernels {norm_ran}, host launches "
+                             f"{replayed}, {replayed_norm}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"attack: peak torch.cuda.max_memory_allocated over the UADA steps = {peak:.2f} GiB [{card}]")
     graphed = {MODEL: graphed_against_eager("attack", spec, cfg, params, batch, draws_for)}
@@ -1587,20 +1772,26 @@ def phase_data(card: str, att: dict) -> dict:
                 str(CLI_EVAL_EVERY), "--eval_batches", "1", "--seed", str(SEED), "--device", DEVICE,
                 "--output", out_dir]
         evals = len(range(0, CLI_ITERS, CLI_EVAL_EVERY))
+        passes = host_launches(CLI_ITERS, INNER, {"n": 1})["n"]  # inner steps run from the host
+        want_norm = norm_want(att["want"], passes + evals, passes)
         torch.cuda.reset_peak_memory_stats()
         fa.reset_launches()  # the main path's count starts here
+        norm_ops.reset_launches()
         t = time.perf_counter()
         attack_cli.main(argv)
         torch.cuda.synchronize()
         out["launches"] = launches = dict(fa.flash_attention.launches)  # read right after the main path
+        out["norm_launches"] = norms = dict(norm_ops.launches)
         cli_s = time.perf_counter() - t
         out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         log(f"data: `python -m roboticattack_torch.cli.attack {' '.join(argv[:-2])}` ran in {cli_s:.1f} s "
-            f"(weight init included); B1/B2 launched from the host {launches}, expected {att['want']}; "
+            f"(weight init included); B1/B2 launched from the host {launches}, expected {att['want']}; norm "
+            f"kernels {norms}, expected {want_norm}; "
             f"peak allocated {out['peak_gib']:.2f} GiB (the dummy-data CLI run: {att['cli_peak_gib']:.2f} GiB) "
             f"[{card}]")
-        if launches != att["want"]:
-            raise AssertionError(f"RLDS CLI launch count {launches} != {att['want']}")
+        if launches != att["want"] or norms != want_norm:
+            raise AssertionError(f"RLDS CLI launch count {launches} != {att['want']} or norms {norms} != "
+                                 f"{want_norm}")
         lines = [json.loads(ln) for ln in open(os.path.join(out_dir, "run-metrics.jsonl"))]
         losses = [ln["TRAIN_loss"] for ln in lines if "TRAIN_loss" in ln]
         vals = [ln for ln in lines if any(k.startswith("VAL_") for k in ln)]
@@ -2471,6 +2662,7 @@ def phase_ddp(card: str) -> dict:
     towers = tower_blocks(get_config(MODEL))
     want = {"fwd": CLI_ITERS * INNER * (2 * layers + 3 * towers) + evals * (layers + towers),
             "bwd": CLI_ITERS * INNER * (layers + towers)}
+    want_norm = norm_want(want, CLI_ITERS * INNER + evals, CLI_ITERS * INNER)
     root = tempfile.mkdtemp(prefix="chip_smoke_ddp_")
     out, files0, losses0 = {}, None, None
     try:
@@ -2490,6 +2682,7 @@ def phase_ddp(card: str) -> dict:
             files = sorted(rel for d, _, fs in os.walk(run_dir) for f in fs
                            if not (rel := os.path.relpath(os.path.join(d, f), run_dir)).split(os.sep)[0].isdigit())
             launches = {r: v["flash_attention_launches"] for r, v in ranks.items()}
+            norms = {r: v["norm_launches"] for r, v in ranks.items()}
             log(f"ddp: {label}: torchrun exit {rc} in {secs:.1f} s (process start and 7B init per rank "
                 f"included); backend {ranks[0]['backend']}; patch sha256 by rank "
                 f"{ {r: v['patch_sha256'][:16] for r, v in ranks.items()} }; TRAIN_loss {losses}; "
@@ -2498,7 +2691,8 @@ def phase_ddp(card: str) -> dict:
                 log(f"ddp: {label}: rank {r} on {v['device']}: outer step p50 {v['step_p50_s'] * 1e3:.2f} ms, "
                     f"mean {v['step_mean_s'] * 1e3:.2f} ms (the mean holds the waits on rank 0's file writes), "
                     f"peak allocated {v['init_peak_gib']:.2f} GiB while the weights were drawn, "
-                    f"{v['run_peak_gib']:.2f} GiB over the attack, B1/B2 launches {v['flash_attention_launches']}"
+                    f"{v['run_peak_gib']:.2f} GiB over the attack, B1/B2 launches {v['flash_attention_launches']}, "
+                    f"norm kernels {v['norm_launches']} (expected {want_norm})"
                     f"{' (two processes sharing one card)' if nproc > 1 else ''} [{card}]")
             if len(digests) != 1:
                 raise AssertionError(f"ddp {label}: the ranks' final patches differ: {digests}")
@@ -2507,6 +2701,8 @@ def phase_ddp(card: str) -> dict:
                 raise AssertionError(f"ddp {label}: TRAIN lines {train}, {len(vals)} VAL lines")
             if any(v != want for v in launches.values()):
                 raise AssertionError(f"ddp {label}: B1/B2 launches by rank {launches} != {want} each")
+            if any(v != want_norm for v in norms.values()):
+                raise AssertionError(f"ddp {label}: norm launches by rank {norms} != {want_norm} each")
             # each rank counts the writes it made under the shared run dir
             writes = {r: v["writes"] for r, v in sorted(ranks.items())}
             log(f"ddp: {label}: writes under the run dir by rank {writes}")
@@ -2857,16 +3053,18 @@ def tp_attack_steps(params: dict, cfg, batch_np, mesh=None) -> list:
         log_ = []
         torch.cuda.synchronize()
         fa.reset_launches()  # this step's count starts here
+        norm_ops.reset_launches()
         t = time.perf_counter()
         with counting_collectives(log_):
             state, metrics = step(params, state, batch, TP_ATTACK_LR, False, draws)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
-        launches = dict(fa.flash_attention.launches)
+        launches, norms = dict(fa.flash_attention.launches), dict(norm_ops.launches)
         grad = state.grad_acc.clone()
         state, _ = engine.update_patch(spec, state, grad, lr)
         out.append({"objective": objective, "loss": float(metrics["loss"][0]), "grad": grad.cpu(),
-                    "sha256": patch_digest(state.patch), "launches": launches, "collectives": log_,
+                    "sha256": patch_digest(state.patch), "launches": launches, "norm_launches": norms,
+                    "collectives": log_,
                     "seconds": secs})
     return out
 
@@ -3139,11 +3337,14 @@ def phase_tp_attack(card: str, audits: Audits) -> dict:
             f"step's loss {r['rel_exact']:.3g} from it relative, its patch-gradient cosine {r['cos_exact']:.6f}")
     towers = tower_blocks(get_config(MODEL))
     want_launches = {"fwd": 2 * layers + 3 * towers, "bwd": layers + towers}
+    want_norm = norm_want(want_launches, 1, 1)
     for r in ref:
         log(f"tp_attack: one process, {r['objective']} inner step: loss {r['loss']!r}, patch sha256 "
-            f"{r['sha256'][:16]}, B1/B2 launches {r['launches']}, {r['seconds']:.2f} s")
-        if r["launches"] != want_launches or not np.isfinite(r["loss"]):
-            raise AssertionError(f"tp_attack: the one-process step: {r['launches']}, loss {r['loss']}")
+            f"{r['sha256'][:16]}, B1/B2 launches {r['launches']}, norm kernels {r['norm_launches']} (expected "
+            f"{want_norm}), {r['seconds']:.2f} s")
+        if r["launches"] != want_launches or r["norm_launches"] != want_norm or not np.isfinite(r["loss"]):
+            raise AssertionError(f"tp_attack: the one-process step: {r['launches']}, norms {r['norm_launches']}, "
+                                 f"loss {r['loss']}")
     log(f"tp_attack: the one-process references (the draw, both steps in bf16 and in f32) in "
         f"{time.perf_counter() - t:.1f} s, the bf16 steps' peak {ref_peak:.2f} GiB; the parent holds "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, {torch.cuda.memory_reserved() / 2**30:.2f} "
@@ -3196,7 +3397,8 @@ def phase_tp_attack(card: str, audits: Audits) -> dict:
                         f"process {rel:.3g}, tol {TP_ATTACK_LOSS_RTOL:g}), patch gradient: 1 - cosine to the f32 "
                         f"gradient {1.0 - cos_exact:.6g} (bound {bound:.6g} = {TP_ATTACK_EXACT_FACTOR:g} x one "
                         f"process's {1.0 - want['cos_exact']:.6g}), cosine to one process's {cos:.6f}, sha256 "
-                        f"{s['sha256'][:16]}, B1/B2 {s['launches']}, {s['seconds']:.2f} s, of which "
+                        f"{s['sha256'][:16]}, B1/B2 {s['launches']}, norm kernels {s['norm_launches']}, "
+                        f"{s['seconds']:.2f} s, of which "
                         f"{sum(inv['seconds'].values()):.2f} s in collectives (host clock, the card synchronized "
                         f"around each); collectives {colls}; largest gather {inv['gather_max_bytes']} B")
                     if rel > TP_ATTACK_LOSS_RTOL or not 1.0 - cos_exact <= bound:
@@ -3204,6 +3406,8 @@ def phase_tp_attack(card: str, audits: Audits) -> dict:
                                       f"f32 gradient {1.0 - cos_exact} > {bound}")
                     if s["launches"] != want_launches:
                         failed.append(f"{label} rank {r}: B1/B2 {s['launches']} != {want_launches}")
+                    if s["norm_launches"] != want_norm:
+                        failed.append(f"{label} rank {r}: norm kernels {s['norm_launches']} != {want_norm}")
                     if inv["gather_max_bytes"] >= MB:
                         failed.append(f"{label} rank {r} {s['objective']}: a gather of {inv['gather_max_bytes']} B")
                     res["launches"][f"rank {r}, {s['objective']}"] = s["launches"]
@@ -3270,10 +3474,11 @@ def train_memory_gib(params: dict, mask: dict) -> dict:
 
 def picked_grads(params: dict, cfg, batch, layer: int) -> tuple:
     """One step's loss on `cfg` and the gradients of projector.fc1_w, layer
-    `layer`'s q_w / k_w / v_w and lm_head (the other leaves frozen; the
-    layer stacks as per-layer leaves, as the trainer passes them)."""
-    picks = {("projector", "fc1_w"): None, ("llm", "lm_head"): None,
-             **{("llm", "layers", k): layer for k in ("q_w", "k_w", "v_w")}}
+    `layer`'s q_w / k_w / v_w and its two norms' weights, the final norm's
+    and lm_head (the other leaves frozen; the layer stacks as per-layer
+    leaves, as the trainer passes them)."""
+    picks = {("projector", "fc1_w"): None, ("llm", "lm_head"): None, ("llm", "norm"): None,
+             **{("llm", "layers", k): layer for k in ("q_w", "k_w", "v_w", "attn_norm", "mlp_norm")}}
     leaves, want = {}, {}
     for path, t in tree_leaves(params):
         if path in picks and picks[path] is None:
@@ -3290,20 +3495,22 @@ def picked_grads(params: dict, cfg, batch, layer: int) -> tuple:
 
 
 def grads_against_plain(params: dict, cfg, batch) -> dict:
-    """picked_grads through the kernels (B1/B2) against the plain attention
-    path (attn_impl="xla" under plain_attention): the loss within 1e-2
-    relative, each gradient's cosine at least 0.99."""
+    """picked_grads through the kernels (B1/B2 and the norms) against the
+    plain path (attn_impl="xla" under plain_blocks: plain attention and
+    norms): the loss within 1e-2 relative, each gradient's cosine at least
+    0.99."""
     xla_cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, attn_impl="xla"))
     loss_f, grad_f = picked_grads(params, cfg, batch, TRAIN_CHECK_LAYER)
-    with plain_attention():
+    with plain_blocks():
         loss_x, grad_x = picked_grads(params, xla_cfg, batch, TRAIN_CHECK_LAYER)
     rel = abs(loss_f - loss_x) / abs(loss_x)
     cos = {k: F.cosine_similarity(g.float().flatten(), grad_x[k].float().flatten(), dim=0).item()
            for k, g in grad_f.items()}
-    log(f"train: one step's loss through B1/B2 {loss_f:.6g} vs plain attention {loss_x:.6g} (rel diff "
+    log(f"train: one step's loss through B1/B2 and the norm kernels {loss_f:.6g} vs plain attention and norms "
+        f"{loss_x:.6g} (rel diff "
         f"{rel:.3g}, tol 1e-2); gradient cosines {cos} (tol 0.99)")
     if not (rel <= 1e-2 and all(c >= 0.99 for c in cos.values())):
-        raise AssertionError(f"train: the kernel path's gradients disagree with plain attention: {rel}, {cos}")
+        raise AssertionError(f"train: the kernel path's gradients disagree with the plain path: {rel}, {cos}")
     return {"rel": rel, "cos": cos}
 
 
@@ -3326,22 +3533,25 @@ def rank_model():
 
 def rank_training(cfg, strategy: str, mesh=None) -> dict:
     """RANK_STEPS steps of the rank model on the fixed dummy batch: each
-    step's loss and B1/B2 launches, the digest of the whole tree, the peak."""
+    step's loss, B1/B2 and norm launches, the digest of the whole tree, the
+    peak."""
     params = init_vla_params(torch.Generator(device=DEVICE).manual_seed(SEED), cfg)
     batch = next(dummy_batches(TRAIN_BS))
     torch.cuda.reset_peak_memory_stats()
     trainer = VLATrainer(params, cfg, train_config(strategy=strategy, max_steps=RANK_STEPS), mesh=mesh,
                          device=DEVICE)
     del params
-    losses, launches, ms = [], [], []
+    losses, launches, norms, ms = [], [], [], []
     for _ in range(RANK_STEPS):
         fa.reset_launches()
+        norm_ops.reset_launches()
         t = time.perf_counter()
         losses.append(trainer.run_training(iter([batch]), 1))
         ms.append((time.perf_counter() - t) * 1e3)
         launches.append(dict(fa.flash_attention.launches))
+        norms.append(dict(norm_ops.launches))
     digest = tree_digest(trainer.full_params())
-    return {"losses": losses, "launches": launches, "step_ms": ms, "sha256": digest,
+    return {"losses": losses, "launches": launches, "norm_launches": norms, "step_ms": ms, "sha256": digest,
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
@@ -3519,14 +3729,16 @@ def phase_train(card: str) -> dict:
     trainer = VLATrainer(params, cfg, train_config(), device=DEVICE)
     del params
     built_gib = torch.cuda.memory_allocated() / 2**30
-    losses, step_ms, launches = [], [], []
+    losses, step_ms, launches, norms = [], [], [], []
     changed = None
     for i in range(TRAIN_STEPS):
         fa.reset_launches()  # each main-path step's count starts here
+        norm_ops.reset_launches()
         t = time.perf_counter()
         losses.append(trainer.run_training(iter([batch_np]), 1))
         step_ms.append((time.perf_counter() - t) * 1e3)
         launches.append(dict(fa.flash_attention.launches))
+        norms.append(dict(norm_ops.launches))
         if i == 0:
             moved = [p for p, t in tree_leaves(trainer.params) if not torch.equal(t, host[p].to(t.device))]
             log(f"train: step 1 (lr 0) left {len(host) - len(moved)} of {len(host)} leaves bit-equal")
@@ -3543,13 +3755,17 @@ def phase_train(card: str) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2**30
     towers = tower_blocks(cfg)
     want = {"fwd": 2 * layers + 2 * towers, "bwd": layers}
+    want_norm = norm_want(want, 1, 1, trained=True)
     log(f"train: losses per step {losses}; wall ms per step {[round(x, 2) for x in step_ms]}; B1/B2 launches "
         f"per step {launches} (expected {want}: {layers} layers x 2 B1 under remat, {layers} B2; the frozen "
-        f"towers' {towers} blocks x 2 B1, no B2); peak "
+        f"towers' {towers} blocks x 2 B1, no B2); norm kernels per step {norms} (expected {want_norm}: the "
+        f"decoder's trained norms take dx and weight-gradient launches, the frozen towers' neither); peak "
         f"{peak:.2f} GiB (limit {TRAIN_PEAK_GIB}), {built_gib:.2f} GiB once built, reckoned "
         f"{reckon['total']:.2f} GiB before activations and transients [{card}]")
     if any(n != want for n in launches):
         raise AssertionError(f"train: B1/B2 launches per step {launches} != {want}")
+    if any(n != want_norm for n in norms):
+        raise AssertionError(f"train: norm launches per step {norms} != {want_norm}")
     if not (np.all(np.isfinite(losses)) and losses[1] > losses[2] > losses[3]):
         raise AssertionError(f"train: the loss did not fall strictly over steps 2-4: {losses}")
     if peak > TRAIN_PEAK_GIB:
@@ -3597,12 +3813,14 @@ def phase_train(card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"train: the rank model ({RANK_LAYERS} LLM layers) in one process: losses {single['losses']}, "
-        f"launches {single['launches']}, step ms {[round(x, 2) for x in single['step_ms']]}, peak "
+        f"launches {single['launches']}, norm kernels {single['norm_launches']}, step ms "
+        f"{[round(x, 2) for x in single['step_ms']]}, peak "
         f"{single['peak_gib']:.2f} GiB [{card}]")
     rc, secs, ranks, tail = torchrun_train(2)
     if rc != 0 or sorted(ranks) != [0, 1]:
         raise AssertionError(f"train: torchrun train-rank x2 exit {rc}, rank lines {sorted(ranks)}\n{tail}")
     want_rank = {"fwd": 2 * RANK_LAYERS + 2 * towers, "bwd": RANK_LAYERS}
+    want_rank_norm = norm_want(want_rank, 1, 1, trained=True)
     digests = set()
     for r, v in sorted(ranks.items()):
         for strategy in ("ddp", "fsdp"):
@@ -3610,16 +3828,20 @@ def phase_train(card: str) -> dict:
             digests.add(run["sha256"])
             rel = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], single["losses"]))
             log(f"train: rank {r}/2 {strategy} ({v['backend']}, {v['device']}): losses {run['losses']} (max rel "
-                f"diff to one process {rel:.3g}, tol 1e-2), launches {run['launches']}, step ms "
+                f"diff to one process {rel:.3g}, tol 1e-2), launches {run['launches']}, norm kernels "
+                f"{run['norm_launches']} (expected {want_rank_norm} a step), step ms "
                 f"{[round(x, 2) for x in run['step_ms']]}, peak {run['peak_gib']:.2f} GiB, sha256 "
                 f"{run['sha256'][:16]} (two processes sharing one card) [{card}]")
-            if rel > 1e-2 or any(n != want_rank for n in run["launches"]):
+            if (rel > 1e-2 or any(n != want_rank for n in run["launches"])
+                    or any(n != want_rank_norm for n in run["norm_launches"])):
                 raise AssertionError(f"train: rank {r} {strategy}: losses {run['losses']} vs {single['losses']}, "
-                                     f"launches {run['launches']} != {want_rank}")
+                                     f"launches {run['launches']} != {want_rank}, norms {run['norm_launches']} != "
+                                     f"{want_rank_norm}")
     if len(digests) != 1:
         raise AssertionError(f"train: parameter digests differ across ranks or strategies: {digests}")
     log(f"train: torchrun x2 exit {rc} in {secs:.1f} s; one parameter sha256 across ranks and strategies")
-    return {"launches": launches, "losses": losses, "step_ms": step_ms, "peak_gib": peak, "reckon": reckon,
+    return {"launches": launches, "norm_launches": norms, "losses": losses, "step_ms": step_ms, "peak_gib": peak,
+            "reckon": reckon,
             "changed": changed, "grads_ms": grads_ms, "opt_ms": opt_ms, "device": found, "against": against,
             "tiny": tiny, "ranks": {r: {s: v[s]["launches"][0] for s in ("ddp", "fsdp")} for r, v in ranks.items()},
             "rank_seconds": secs}
@@ -3654,6 +3876,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"freed the serving phases: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
     flash = phase_flash(bw, card)
+    norms = phase_norm(bw, card)
     att = phase_attack(card)
     data = phase_data(card, att)
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_checkpoint")
@@ -3797,7 +4020,7 @@ def main() -> int:
                     for tp, r in tp_rows.items() for m, t in r["by_m"].items()},
             })
     log(f"total {time.perf_counter() - t_all:.1f} s")
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernels, "norm": norms}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

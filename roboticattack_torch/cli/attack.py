@@ -287,13 +287,14 @@ def run(args, device, mesh):
         print(f"Attack done! best {attack.objective} val metric: {result.best_metric:.6g}")
         print(f"patch artifacts under {out_dir}")
     if mesh is not None:
+        from ..ops import norm
         from ..ops.flash_attention import flash_attention
 
         line = {"rank": mesh.rank, "world": mesh.size, "backend": torch.distributed.get_backend(),
                 "device": str(device), "patch_sha256": patch_digest(result.patch),
                 "writes": writes + runner.writes + tracker.writes,
                 "step_mean_s": result.timing.get("mean_s"), "step_p50_s": result.timing.get("p50_s"),
-                "flash_attention_launches": dict(flash_attention.launches)}
+                "flash_attention_launches": dict(flash_attention.launches), "norm_launches": dict(norm.launches)}
         if rank_memory:
             line.update(init_peak_gib=init_peak, run_peak_gib=torch.cuda.max_memory_allocated(device) / 2**30)
         # one write: the ranks share a stdout pipe, and print's text and

@@ -54,13 +54,14 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.attention import NEG_INF
+from ..ops.norm import rms_norm
 from ..parallel.mesh import ServingMesh
 from ..ops.q4_matmul import _unpack_nibbles, q4_matmul
 from ..utils.action_tokenizer import decode_tokens
 from ..utils.constants import ACTION_DIM, EMPTY_TOKEN_ID
 from .config import DeepseekV3Config, PhiConfig, VLAConfig, torch_dtype
 from .deepseek import unsupported
-from .llama import apply_rope, rms_norm, rope_cos_sin
+from .llama import apply_rope, rope_cos_sin
 from .quant import _pack_nibbles
 from .vlm import projector_apply, vision_features
 

@@ -51,10 +51,11 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attend, causal_bias, padding_bias
 from ..ops.grouped_matmul import grouped_matmul
+from ..ops.norm import rms_norm
 from ..parallel.tensor_parallel import split
 from ..utils.profiling import count, keep, span
 from .config import DeepseekV3Config
-from .llama import apply_rope, rms_norm, rope_cos_sin
+from .llama import apply_rope, rope_cos_sin
 from .param_tree import ParamTree
 from .vit import _normal
 

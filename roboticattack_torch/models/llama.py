@@ -29,21 +29,13 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attend, causal_bias, padding_bias
+from ..ops.norm import rms_norm
 from ..parallel.tensor_parallel import copy_to_model, local_count, reduce_from_model, vocab_embed, vocab_token_logprob
 from ..utils.constants import IGNORE_INDEX
 from ..utils.profiling import count
 from .config import LlamaConfig
 from .param_tree import ParamTree, tree_from_leaves
 from .vit import _normal
-
-
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
-    """fp32 statistics; the normalised value is cast to x.dtype BEFORE the
-    weight multiply (HF LlamaRMSNorm)."""
-    xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
-    normed = (xf * torch.rsqrt(var + eps)).to(x.dtype)
-    return weight * normed
 
 
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -38,13 +38,14 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attend, causal_bias, padding_bias
+from ..ops.norm import layer_norm
 from .config import PhiConfig
 from .convert import getter, stacked_layers
 from .llama import rope_cos_sin, rotate_half
 from ..parallel.tensor_parallel import copy_to_model, local_count, reduce_from_model
 from ..utils.profiling import count
 from .param_tree import ParamTree
-from .vit import _normal, layer_norm
+from .vit import _normal
 
 
 def _apply_partial_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,

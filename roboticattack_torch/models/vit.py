@@ -26,17 +26,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attend
+from ..ops.norm import layer_norm
 from ..utils.profiling import count
 from .config import ViTConfig
 from .param_tree import ParamTree
-
-
-def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = xf.var(dim=-1, keepdim=True, unbiased=False)
-    normed = (xf - mean) * torch.rsqrt(var + eps)
-    return (normed * scale.float() + bias.float()).to(x.dtype)
 
 
 def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:

@@ -266,6 +266,34 @@ def test_the_kernel_share_reader_reads_the_first_recorded_steps_counters(monkeyp
     assert read({}) is None
 
 
+@pytest.mark.parametrize("family", [*FAMILIES, "moonlight"])
+def test_the_norm_share_reader_reads_the_first_recorded_steps_counters(family, monkeypatch):
+    """attack.norm_kernel_share: `norm.kernel` over `norm.calls` of the
+    first recorded step, in %. Under per-block recomputation an inner step
+    runs each tower block's 2 norms three times, CLIP's pre-norm twice (the
+    forward and the vision encode's recomputation), each decoder block's
+    norms (2 Llama, 1 Phi, 3 DeepSeek-V3) twice and the final norm once.
+    The CPU's plain norms keep the kernel counter at 0; a program that keeps
+    no such counter (or no recorder) reads None."""
+    read = _reader("attack.norm_kernel_share")
+    assert read({}) is None  # an empty recorder
+    step, cfg = (traced(family) if family in FAMILIES else traced_moonlight())[:2]
+    per_block = {"LlamaConfig": 2, "PhiConfig": 1, "DeepseekV3Config": 3}[type(cfg.llm).__name__]
+    pre = sum(t.pre_norm for t in (cfg.dino, cfg.siglip) if t is not None)
+    calls = step.counters["norm.calls"]
+    assert calls == INNER * (6 * tower_blocks(cfg) + 2 * pre + 2 * per_block * cfg.llm.num_layers + 1)
+    assert step.counters["norm.kernel"] == 0 and read({}) == 0.0
+    profiling.RECORDER.steps.append(profiling.OuterStep(id=step.id + 1, cuda=False))  # a later step is not read
+    step.counters["norm.kernel"] = calls
+    assert read({}) == pytest.approx(100.0)
+    step.counters["norm.kernel"] = calls // 3
+    assert read({}) == pytest.approx(100.0 * (calls // 3) / calls)
+    del step.counters["norm.kernel"]
+    assert read({}) is None
+    monkeypatch.setitem(sys.modules, "roboticattack_torch.utils.profiling", None)
+    assert read({}) is None
+
+
 def traced_moonlight(remat=True):
     """One traced UADA outer step of the tiny Moonlight-shaped VLA
     (tests/deepseek_tiny.py) with a nonzero correction bias."""
